@@ -1,0 +1,115 @@
+"""The hand-written CUDA nearest-code kernel (vqvae_tpu_torch/csrc/nearest_code.cu).
+
+This file imports neither JAX nor the JAX package, so its ``gpu`` tests run
+on a machine that has a card and no JAX:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda_kernel.py
+
+(``--noconftest`` skips tests/conftest.py, which sets JAX up.) Without a card
+the ``gpu`` tests skip themselves; the wrapper's refusals run everywhere.
+
+The oracle is the plain version ``nearest_code_torch`` on the same card.
+Index tolerance: the two sum the products in different orders, so an
+assignment may differ only at a near-tie (``compare_assignments``: float64
+scores of the two codes within 1e-5 * (||z||^2 + max ||e||^2)). Gathered rows
+must be the codebook's own bits.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from vqvae_tpu_torch.ops import cuda_quantizer
+from vqvae_tpu_torch.ops.quantizer import compare_assignments, nearest_code, nearest_code_torch
+
+MODES = ["highest", "high", "default"]
+
+
+def _inputs(n, k, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (
+        torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)),
+        torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32)),
+    )
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run on the card with -m gpu")
+    return torch.device("cuda")
+
+
+def test_cuda_wrapper_rejects_cpu_tensors():
+    """The kernel wrapper never falls back: a CPU tensor is refused before any
+    build or launch, and the launch count does not move."""
+    z, cb = _inputs(8, 4, 4)
+    before = cuda_quantizer.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_quantizer.nearest_code_cuda(z, cb)
+    assert cuda_quantizer.launches == before
+
+
+def test_nearest_code_on_cpu_takes_the_plain_version():
+    """On CPU tensors ``nearest_code`` is the plain version and launches nothing."""
+    z, cb = _inputs(50, 30, 8, seed=1)
+    before = cuda_quantizer.launches
+    zq, idx = nearest_code(z, cb, "highest")
+    zq_ref, idx_ref = nearest_code_torch(z, cb, "highest")
+    assert torch.equal(idx, idx_ref) and torch.equal(zq, zq_ref)
+    assert cuda_quantizer.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", MODES)
+@pytest.mark.parametrize("shape", [(1000, 300, 48), (2048, 512, 64), (257, 70, 256)])
+def test_cuda_kernel_vs_plain_on_card(shape, precision):
+    """Near-tie rule, exact gather, first minimum on a duplicated codebook,
+    ragged N and K edges, D up to 256 (above 48 KB of shared memory)."""
+    dev = _card()
+    assert torch.get_float32_matmul_precision() == "highest"  # the plain version in fp32
+    n, k, d = shape
+    z, cb = (t.to(dev) for t in _inputs(n, k, d))
+    before = cuda_quantizer.launches
+    zq, idx = cuda_quantizer.nearest_code_cuda(z, cb, precision)
+    torch.cuda.synchronize()
+    assert cuda_quantizer.launches == before + 1
+    assert idx.dtype == torch.int32 and idx.shape == (n,)
+    _, idx_ref = nearest_code_torch(z, cb, precision)
+    mism, near, gap = compare_assignments(z, cb, idx, idx_ref, precision)
+    assert mism == near, f"{mism - near} of {mism} mismatches are not near-ties (gap {gap})"
+    assert torch.equal(zq, cb.index_select(0, idx))
+    cb_dup = torch.cat([cb[: k // 2], cb[: k // 2]])
+    _, idx_dup = cuda_quantizer.nearest_code_cuda(z, cb_dup, precision)
+    assert int(idx_dup.max()) < k // 2
+
+
+@pytest.mark.gpu
+def test_nearest_code_on_card_launches_the_kernel_and_backprops():
+    """A CUDA tensor goes through the kernel; the backward scatter-adds the
+    cotangent into the codebook rows and gives z a zero gradient."""
+    dev = _card()
+    z, cb = (t.to(dev).requires_grad_() for t in _inputs(300, 40, 16, seed=2))
+    g = torch.randn(300, 16, device=dev)
+    before = cuda_quantizer.launches
+    zq, idx = nearest_code(z, cb, "highest")
+    assert cuda_quantizer.launches == before + 1
+    (zq * g).sum().backward()
+    want = torch.zeros_like(cb).index_add_(0, idx.long(), g)
+    torch.testing.assert_close(cb.grad, want, rtol=0, atol=1e-5)
+    assert torch.count_nonzero(z.grad) == 0
+
+
+@pytest.mark.gpu
+def test_cuda_wrapper_rejects_bad_inputs_on_card():
+    dev = _card()
+    z, cb = (t.to(dev) for t in _inputs(16, 8, 4))
+    with pytest.raises(ValueError, match="float32"):
+        cuda_quantizer.nearest_code_indices(z.half(), cb)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_quantizer.nearest_code_indices(z.t(), cb[:, :4].t().contiguous())
+    with pytest.raises(ValueError, match="depth"):
+        cuda_quantizer.nearest_code_indices(z, cb[:, :3].contiguous())
+    with pytest.raises(ValueError, match="precision"):
+        cuda_quantizer.nearest_code_indices(z, cb, "fast")
