@@ -3,27 +3,34 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written nearest-code kernel from ``vqvae_tpu_torch/csrc`` and
-drives the port's main path at full width, in phases; any failed phase stops
-the script with a non-zero exit and no result line:
+Builds the hand-written nearest-code kernels from ``vqvae_tpu_torch/csrc``
+(the tensor-core kernel, route "mma", and the CUDA-core kernel, route "fma")
+and drives the port's main path at full width, in phases; any failed phase
+stops the script with a non-zero exit and no result line:
 
-1. the card (nvidia-smi name and power limit) and the kernel's build report
-   (``-Xptxas -v``: registers, shared memory, spills);
-2. the kernel against its plain PyTorch version on the card, in all three
-   precision modes, at the main path's shapes and the TPU kernel test's
-   shapes: z_q must be bit-exactly codebook[idx], every index mismatch a
+1. the card (nvidia-smi name and power limit), the kernels' build report
+   (``-Xptxas -v``: registers, shared memory, spills) and the count of
+   tensor-core instructions in each built kernel;
+2. the kernels against their plain PyTorch version on the card, in all three
+   precision modes, at the main path's shapes, the TPU kernel test's shapes
+   and a ragged-K shape: for each the route the dispatch picks (the "mma"
+   kernel with each of its block shapes) and, where that is "mma", the "fma"
+   route too. z_q must be bit-exactly codebook[idx], every index mismatch a
    near-tie (float64 scores within 1e-5 * (||z||^2 + max ||e||^2)), and a
    duplicated codebook must give every index < K/2 (first minimum wins);
 3. latent extraction, the main path: the trained bf16 checkpoint
    (artifacts/e2e_r5, "default" quantizer) over the 12,000 synthetic CIFAR
-   images at batch 256, which must launch the kernel 47 times; its codes are
-   held against the plain version on the same latents under the near-tie rule;
+   images at batch 256, which must launch the "mma" kernel 47 times; its
+   codes are held against the plain version on the same latents under the
+   near-tie rule;
 4. reconstruction with the trained fp32/"highest" checkpoint (artifacts/e2e_r4)
-   on 1,024 validation images through ``reconstruct`` and ``forward``, held
-   against the port on the CPU on 8 images;
+   on 1,024 validation images through ``reconstruct`` and ``forward`` (2
+   launches of the "fma" kernel), held against the port on the CPU on 8 images;
 5. times with CUDA events at the main path's shapes for each mode: the
-   kernel, its bound on an H100 SXM, the plain version, and one PyTorch
-   matmul + argmin as a yardstick (the port never calls it);
+   kernel the dispatch picks, the "fma" kernel where that is another, the
+   bound on an H100 SXM, the launch floor (an empty kernel), the plain
+   version, and one PyTorch matmul + argmin as a yardstick (the port never
+   calls it);
 6. ``torch.profiler`` over an extraction of 2,560 images: device time by
    kernel and the share of the wall time in which the card was busy.
 
@@ -54,6 +61,8 @@ PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
 MAIN_SHAPE = (16_384, 512, 64)        # extraction: batch 256 x 8 x 8 latents
 BENCH_SHAPE = (65_536, 512, 64)       # the JAX bench.py batch of 1,024
 TPU_TEST_SHAPES = ((2048, 512, 64), (2048, 8192, 256), (1000, 300, 48))
+RAGGED_K_SHAPE = (4096, 301, 64)      # K no multiple of 8, inside the "mma" envelope
+SPIN_CYCLES = 20_000_000              # device spin that lets the host queue ahead
 DEVICE = "cuda"
 
 
@@ -62,18 +71,51 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+def time_ms(fn, iters: int = 50, warmup: int = 5, queue_ahead: bool = True) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, from CUDA events.
+
+    With ``queue_ahead`` the card first spins for about 11 ms, so the host
+    has queued the calls before the first one runs and the events time the
+    card alone; without it a short kernel is timed at the host's pace.
+    """
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queue_ahead:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def alternate(fns: dict) -> dict:
+    """Time every function in turn, then again in reverse order (a, b, b, a):
+    the faster of each one's two turns, in ms."""
+    names = list(fns)
+    times = {name: [] for name in names}
+    for name in names + names[::-1]:
+        times[name].append(time_ms(fns[name]))
+    return {name: min(ts) for name, ts in times.items()}
+
+
+def tensor_core_counts(cuda_quantizer, lib_path) -> dict:
+    """HMMA (tensor-core) instructions per kernel in the built library's SASS."""
+    cuobjdump = os.path.join(os.path.dirname(cuda_quantizer.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def bound(n: int, k: int, d: int, mode: str):
@@ -119,14 +161,19 @@ def profile_extraction(model, data: np.ndarray) -> None:
             cur_s = s
         cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    by_name = {}
+    by_name, count = {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            count[e.name] = count.get(e.name, 0) + 1
     print(f"[6] profile of extract_latents over {len(data)} images: wall {wall_us / 1e3:.3f} ms "
           f"(profiler on), device busy {busy / 1e3:.3f} ms = {busy / wall_us:.3f} of wall")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"[6]   {us / 1e3:9.3f} ms  {name[:110]}")
+    for name, us in by_name.items():  # the hand-written kernels, wherever they rank
+        if "nearest_code" in name or "prepare_codebook" in name:
+            print(f"[6] hand-written: {us / 1e3:.3f} ms = {us / busy:.4f} of busy in "
+                  f"{count[name]} launches ({us / count[name]:.2f} us each)  {name[:70]}")
 
 
 def main() -> int:
@@ -163,29 +210,54 @@ def main() -> int:
     lib_path = cuda_quantizer.build()
     print(f"[1] built {os.path.relpath(lib_path, ROOT)} in {time.perf_counter() - t0:.1f} s")
     print(cuda_quantizer.build_log.strip())
+    hmma = tensor_core_counts(cuda_quantizer, lib_path)
+    search = {name: c for name, c in hmma.items() if "nearest_code_mma_kernel" in name}
+    others = {name: c for name, c in hmma.items() if name not in search}
+    print(f"[1] HMMA instructions in the SASS (cuobjdump): {len(search)} nearest_code_mma_kernel "
+          f"variants hold {min(search.values(), default=0)} to {max(search.values(), default=0)} "
+          f"each; every other kernel ({len(others)}) {max(others.values(), default=0)} at most")
+    check(search and min(search.values()) > 0,
+          "a tensor-core search kernel holds no tensor-core instruction")
 
-    # -- phase 2: kernel vs plain on the card ---------------------------------
+    # -- phase 2: kernels vs plain on the card --------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
-    main_err = None
-    for n, k, d in (MAIN_SHAPE, BENCH_SHAPE) + TPU_TEST_SHAPES:
+    main_err = {}
+    # the block the main path runs, tried first
+    default_block = (cuda_quantizer.MMA_BLOCK_ROWS, cuda_quantizer.MMA_CODE_SPLIT)
+    blocks = [default_block] + [b for b in cuda_quantizer.MMA_BLOCKS if b != default_block]
+
+    def set_block(block):
+        cuda_quantizer.MMA_BLOCK_ROWS, cuda_quantizer.MMA_CODE_SPLIT = block
+
+    for n, k, d in (MAIN_SHAPE, BENCH_SHAPE) + TPU_TEST_SHAPES + (RAGGED_K_SHAPE,):
         z = torch.randn(n, d, device=dev, generator=gen)
         cb = torch.randn(k, d, device=dev, generator=gen)
         cb_dup = torch.cat([cb[: k // 2], cb[: k // 2]])
         for mode in MODES:
-            zq, idx = cuda_quantizer.nearest_code_cuda(z, cb, mode)
-            torch.cuda.synchronize()
             _, idx_ref = nearest_code_torch(z, cb, mode)
-            mism, near, gap = compare_assignments(z, cb, idx, idx_ref, mode)
-            exact = torch.equal(zq, cb.index_select(0, idx))
-            _, idx_dup = cuda_quantizer.nearest_code_cuda(z, cb_dup, mode)
-            dup_max = int(idx_dup.max())
-            print(f"[2] N={n} K={k} D={d} {mode:8s} mismatches={mism} near_ties={near} "
-                  f"max_gap={gap:.3g} gather_exact={exact} dup_max_idx={dup_max} (< {k // 2})")
-            check(exact, "z_q is not bit-exactly codebook[idx]")
-            check(mism == near, f"{mism - near} index mismatches are not near-ties")
-            check(dup_max < k // 2, "duplicate codebook: first minimum did not win")
-            if (n, k, d) == MAIN_SHAPE and mode == "default":
-                main_err = gap
+            picked = cuda_quantizer.kernel_route(mode, d)
+            runs = [("fma", None)]
+            if picked == "mma":
+                runs = [("mma", block) for block in blocks] + runs
+            for route, block in runs:
+                if block is not None:
+                    set_block(block)
+                zq, idx = cuda_quantizer.nearest_code_cuda(z, cb, mode, route)
+                torch.cuda.synchronize()
+                mism, near, gap = compare_assignments(z, cb, idx, idx_ref, mode)
+                exact = torch.equal(zq, cb.index_select(0, idx))
+                _, idx_dup = cuda_quantizer.nearest_code_cuda(z, cb_dup, mode, route)
+                dup_max = int(idx_dup.max())
+                label = route if block is None else f"{route}/{block[0]}x{block[1]}"
+                print(f"[2] N={n} K={k} D={d} {mode:8s} {label:9s} mismatches={mism} "
+                      f"near_ties={near} max_gap={gap:.3g} gather_exact={exact} "
+                      f"dup_max_idx={dup_max} (< {k // 2})")
+                check(exact, "z_q is not bit-exactly codebook[idx]")
+                check(mism == near, f"{mism - near} index mismatches are not near-ties")
+                check(dup_max < k // 2, "duplicate codebook: first minimum did not win")
+                if (n, k, d) == MAIN_SHAPE:
+                    main_err.setdefault((mode, route), gap)
+    set_block(default_block)
 
     # -- phase 3: extraction, the main path -----------------------------------
     model, _metrics, hp = load_model(R5, device=DEVICE)
@@ -195,16 +267,18 @@ def main() -> int:
     data = np.concatenate([train.data, val.data])
     extract_latents(model, data[:256], batch_size=256)  # cuDNN warm-up
     torch.cuda.synchronize()
-    cuda_quantizer.launches = 0
+    cuda_quantizer.reset_launch_counts()
     t0 = time.perf_counter()
     codes = extract_latents(model, data, batch_size=256)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches_main = cuda_quantizer.launches
+    launches_main = dict(cuda_quantizer.launches_by_route)
     n_batches = math.ceil(len(data) / 256)
     print(f"[3] extract_latents: {codes.shape} in {dt:.3f} s = {len(data) / dt:.0f} images/s "
-          f"(host clock, data staged from host), kernel launches {launches_main}")
-    check(launches_main == n_batches, f"expected {n_batches} kernel launches, got {launches_main}")
+          f"(host clock, data staged from host), kernel launches {cuda_quantizer.launches} "
+          f"by route {launches_main}")
+    check(launches_main == {"mma": n_batches, "fma": 0} and cuda_quantizer.launches == n_batches,
+          f"expected {n_batches} launches, all on the mma route, got {launches_main}")
     rates = []
     for _ in range(2):  # the spread of the host-clock rate
         t0 = time.perf_counter()
@@ -235,18 +309,19 @@ def main() -> int:
     check(hp4["compute_dtype"] == "float32" and hp4["quantizer_precision"] == "highest",
           f"unexpected e2e_r4 hyperparameters {hp4}")
     batch = val.data[:1024]
-    cuda_quantizer.launches = 0
+    cuda_quantizer.reset_launch_counts()
     rec = reconstruct(model4, batch)
     with torch.inference_mode():
         loss, x_hat, perp = model4(torch.from_numpy(batch).to(dev))
     torch.cuda.synchronize()
-    launches_rec = cuda_quantizer.launches
+    launches_rec = dict(cuda_quantizer.launches_by_route)
     mse = float(np.mean((rec - batch) ** 2))
     print(f"[4] e2e_r4 on 1024 val images: loss={float(loss):.6f} perplexity={float(perp):.3f} "
           f"recon_mse={mse:.6f} kernel launches {launches_rec}")
     check(rec.shape == batch.shape and np.isfinite(rec).all(), "reconstruction not finite")
     check(math.isfinite(float(loss)) and math.isfinite(float(perp)), "loss/perplexity not finite")
-    check(launches_rec == 2, f"expected 2 kernel launches, got {launches_rec}")
+    check(launches_rec == {"mma": 0, "fma": 2},
+          f"expected 2 launches, both on the fma route, got {launches_rec}")
     check(float(np.abs(rec - x_hat.cpu().numpy()).max()) <= 1e-5, "reconstruct != forward x_hat")
     # the card against the port on the CPU (TF32 off on the card for "highest")
     model_cpu, _m, _h = load_model(R4, device="cpu")
@@ -263,53 +338,69 @@ def main() -> int:
     check(z_err <= 1e-3 and dec_err <= 1e-3, "fp32 card results drift from the CPU (TF32 on?)")
 
     # -- phase 5: times at the main path's shapes -------------------------------
+    launch_floor_ms = min(time_ms(cuda_quantizer.launch_empty_kernel) for _ in range(2))
+    print(f"[5] launch_floor_ms {launch_floor_ms:.5f} (an empty kernel, queued ahead; {smi})")
     rows = []
-    main_row = None
     for n, k, d in (MAIN_SHAPE, BENCH_SHAPE):
         z = torch.randn(n, d, device=dev, generator=gen)
         cb = torch.randn(k, d, device=dev, generator=gen)
         e_sq = (cb * cb).sum(1)[None, :]
         cb_bf16 = cb.to(torch.bfloat16)
         for mode in MODES:
+            picked = cuda_quantizer.kernel_route(mode, d)
+
+            def with_block(block, z=z, cb=cb, mode=mode):
+                def run():
+                    set_block(block)
+                    return cuda_quantizer.nearest_code_indices(z, cb, mode, "mma")
+                return run
+
             if mode == "default":
                 library = lambda: (e_sq - 2.0 * (z.to(torch.bfloat16) @ cb_bf16.T).float()).argmin(1)
             else:
                 library = lambda: (e_sq - 2.0 * (z @ cb.T)).argmin(1)
-            plain = lambda: code_scores(z, cb, mode).argmin(1)
+            fns = {"plain": lambda: code_scores(z, cb, mode).argmin(1)}
+            if picked == "mma":
+                fns.update({"mma/%dx%d" % b: with_block(b) for b in blocks})
+            fns["fma"] = lambda: cuda_quantizer.nearest_code_indices(z, cb, mode, "fma")
+            fns["library"] = library
+            t = alternate(fns)  # plain, kernels, library, library, kernels, plain
+            set_block(default_block)
             kernel = lambda: cuda_quantizer.nearest_code_indices(z, cb, mode)
-            # alternate plain, kernel, kernel, plain on the same card
-            t_plain_a = time_ms(plain)
-            t_kernel_a = time_ms(kernel)
-            t_kernel_b = time_ms(kernel)
-            t_plain_b = time_ms(plain)
-            t_lib = time_ms(library)
             b_ms, b_by = bound(n, k, d, mode)
-            row = {"shape": [n, k, d], "mode": mode,
-                   "ms": min(t_kernel_a, t_kernel_b), "plain_ms": min(t_plain_a, t_plain_b),
-                   "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by}
+            row = {"shape": [n, k, d], "mode": mode, "route": picked,
+                   "ms": t["mma/%dx%d" % default_block if picked == "mma" else "fma"],
+                   "call_ms": time_ms(kernel, queue_ahead=False),
+                   "fma_ms": t["fma"], "plain_ms": t["plain"], "library_ms": t["library"],
+                   "bound_ms": b_ms, "bound_by": b_by, "launch_floor_ms": launch_floor_ms}
+            row.update({"ms_%dx%d" % b: t["mma/%dx%d" % b] for b in blocks if picked == "mma"})
             rows.append(row)
             print(f"[5] {json.dumps(row)}")
-            if (n, k, d) == MAIN_SHAPE and mode == "default":
-                main_row = row
-    print(f"[5] card: {smi}; times from CUDA events, mean of 50 launches after 5 warm-up")
+    print(f"[5] card: {smi}; times from CUDA events, mean of 50 calls after 5 warm-up, queued "
+          f"behind a device spin so the host's pace is not in them (call_ms: without the spin), "
+          f"the faster of two turns")
+    main_rows = {r["mode"]: r for r in rows if tuple(r["shape"]) == MAIN_SHAPE}
 
     # -- phase 6: where the extraction time goes ------------------------------
     profile_extraction(model, data[:2560])
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
-    kernels = [{
-        "name": "nearest_code",
-        "route": "cuda",
-        "source": "vqvae_tpu_torch/csrc/nearest_code.cu",
-        "replaces": "vqvae_tpu/ops/pallas_quantizer.py:93",
-        "launches": launches_main,
-        "max_abs_err": main_err,
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-    }]
+    def entry(name, source, route, mode, launches):
+        row = main_rows[mode]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": "vqvae_tpu/ops/pallas_quantizer.py:93",
+                "launches": launches, "max_abs_err": main_err[(mode, route)],
+                "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
+    # each kernel at the main shape, in the mode of the path that launches it
+    kernels = [
+        entry("nearest_code_mma", "vqvae_tpu_torch/csrc/nearest_code_mma.cu", "mma", "default",
+              launches_main["mma"]),
+        entry("nearest_code", "vqvae_tpu_torch/csrc/nearest_code.cu", "fma", "highest",
+              launches_rec["fma"]),
+    ]
+    check(all(k["launches"] > 0 for k in kernels), "a kernel of the path was never launched")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""The hand-written CUDA nearest-code kernel (vqvae_tpu_torch/csrc/nearest_code.cu).
+"""The hand-written CUDA nearest-code kernels (vqvae_tpu_torch/csrc/nearest_code.cu
+on the CUDA cores, route "fma"; nearest_code_mma.cu on the tensor cores, route "mma").
 
 This file imports neither JAX nor the JAX package, so its ``gpu`` tests run
 on a machine that has a card and no JAX:
@@ -62,27 +63,69 @@ def test_nearest_code_on_cpu_takes_the_plain_version():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route", ["fma", "mma"])
 @pytest.mark.parametrize("precision", MODES)
-@pytest.mark.parametrize("shape", [(1000, 300, 48), (2048, 512, 64), (257, 70, 256)])
-def test_cuda_kernel_vs_plain_on_card(shape, precision):
+@pytest.mark.parametrize(
+    "shape", [(1000, 300, 48), (2048, 512, 64), (257, 70, 256), (4096, 301, 64), (300, 77, 128)]
+)
+def test_cuda_kernel_vs_plain_on_card(shape, precision, route):
     """Near-tie rule, exact gather, first minimum on a duplicated codebook,
-    ragged N and K edges, D up to 256 (above 48 KB of shared memory)."""
+    ragged N and K edges (K = 301 and 77 are no multiples of 8), D up to 256
+    (above 48 KB of shared memory), on each route that takes the case."""
     dev = _card()
     assert torch.get_float32_matmul_precision() == "highest"  # the plain version in fp32
     n, k, d = shape
+    if route == "mma" and cuda_quantizer.kernel_route(precision, d) != "mma":
+        pytest.skip(f"the mma route does not take {precision!r} at D = {d}")
     z, cb = (t.to(dev) for t in _inputs(n, k, d))
     before = cuda_quantizer.launches
-    zq, idx = cuda_quantizer.nearest_code_cuda(z, cb, precision)
+    before_route = dict(cuda_quantizer.launches_by_route)
+    zq, idx = cuda_quantizer.nearest_code_cuda(z, cb, precision, route)
     torch.cuda.synchronize()
     assert cuda_quantizer.launches == before + 1
+    other = "fma" if route == "mma" else "mma"
+    assert cuda_quantizer.launches_by_route[route] == before_route[route] + 1
+    assert cuda_quantizer.launches_by_route[other] == before_route[other]
     assert idx.dtype == torch.int32 and idx.shape == (n,)
     _, idx_ref = nearest_code_torch(z, cb, precision)
     mism, near, gap = compare_assignments(z, cb, idx, idx_ref, precision)
     assert mism == near, f"{mism - near} of {mism} mismatches are not near-ties (gap {gap})"
     assert torch.equal(zq, cb.index_select(0, idx))
     cb_dup = torch.cat([cb[: k // 2], cb[: k // 2]])
-    _, idx_dup = cuda_quantizer.nearest_code_cuda(z, cb_dup, precision)
+    _, idx_dup = cuda_quantizer.nearest_code_cuda(z, cb_dup, precision, route)
     assert int(idx_dup.max()) < k // 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", cuda_quantizer.MMA_BLOCKS)
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_mma_kernel_block_shapes_on_card(precision, block, monkeypatch):
+    """Every block shape of the tensor-core kernel (rows x warps that share a
+    row's codes) agrees with the plain version; an unknown shape is refused."""
+    dev = _card()
+    monkeypatch.setattr(cuda_quantizer, "MMA_BLOCK_ROWS", block[0])
+    monkeypatch.setattr(cuda_quantizer, "MMA_CODE_SPLIT", block[1])
+    z, cb = (t.to(dev) for t in _inputs(1000, 300, 64, seed=4))
+    idx = cuda_quantizer.nearest_code_indices(z, cb, precision, "mma")
+    _, idx_ref = nearest_code_torch(z, cb, precision)
+    mism, near, gap = compare_assignments(z, cb, idx, idx_ref, precision)
+    assert mism == near, f"{mism - near} of {mism} mismatches are not near-ties (gap {gap})"
+    monkeypatch.setattr(cuda_quantizer, "MMA_BLOCK_ROWS", 96)
+    with pytest.raises(ValueError, match="no mma kernel with block"):
+        cuda_quantizer.nearest_code_indices(z, cb, precision, "mma")
+
+
+@pytest.mark.gpu
+def test_default_dispatch_on_card_follows_kernel_route():
+    dev = _card()
+    for precision, d in (("default", 64), ("highest", 64), ("high", 40)):
+        z, cb = (t.to(dev) for t in _inputs(64, 16, d, seed=5))
+        route = cuda_quantizer.kernel_route(precision, d)
+        before = cuda_quantizer.launches_by_route[route]
+        cuda_quantizer.nearest_code_indices(z, cb, precision)
+        assert cuda_quantizer.launches_by_route[route] == before + 1
+    with pytest.raises(ValueError, match="mma route"):
+        cuda_quantizer.nearest_code_indices(z, cb, "high", "mma")
 
 
 @pytest.mark.gpu

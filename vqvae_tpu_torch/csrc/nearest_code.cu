@@ -35,10 +35,11 @@
 // search is 2NKD = 1.07 GFLOP and moves about 4.3 MB (z and the codebook read
 // once, idx written once): 16 us compute-bound at the fp32 peak ("highest"),
 // 1.1 us of bf16 operations against 1.3 us of memory ("default", so memory
-// binds), 3.3 us for the three bf16 products of "high". This first design
-// runs on the CUDA cores, so it is far from the "default" and "high" bounds
-// by construction; tensor cores (mma.sync / wgmma), TMA and 3xTF32 are later
-// work.
+// binds), 3.3 us for the three bf16 products of "high". This kernel runs on
+// the CUDA cores, so it is far from the "default" and "high" bounds by
+// construction: those modes go to the tensor-core kernel of
+// nearest_code_mma.cu wherever it takes the depth, and this one serves
+// "highest" and the other depths.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

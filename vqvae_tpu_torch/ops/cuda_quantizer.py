@@ -1,13 +1,24 @@
-"""Wrapper of the hand-written CUDA nearest-code kernel (``csrc/nearest_code.cu``).
+"""Wrapper of the hand-written CUDA nearest-code kernels (``csrc/*.cu``).
 
-The counterpart of ``vqvae_tpu/ops/pallas_quantizer.py``. The kernel is
-built from the repository's source with ``nvcc`` at first use, into
-``build/kernels/`` at the repository root, as a shared library with a plain C
-interface loaded through ``ctypes``. Nothing is compiled or loaded at import:
-the CPU tests import this module on machines without ``nvcc``.
+The counterpart of ``vqvae_tpu/ops/pallas_quantizer.py``. Two kernels compute
+the same function, and ``kernel_route`` picks one from (precision, D) alone:
 
-``launches`` counts the kernel's launches, so a run can show that its main
-path went through the kernel; only ``nearest_code_indices`` adds to it.
+``"mma"``  ``csrc/nearest_code_mma.cu``: the products on the tensor cores
+           (``mma.sync`` on bf16 operands, fp32 sums). Takes ``default`` and
+           ``high`` with D a multiple of 16 up to ``MMA_MAX_D``. A call is a
+           small prepare kernel over the codebook and the search kernel.
+``"fma"``  ``csrc/nearest_code.cu``: fp32 FMAs on the CUDA cores. Takes every
+           mode and depth; serves ``highest`` and what ``"mma"`` does not take.
+
+The sources are built with ``nvcc`` at first use, into ``build/kernels/`` at
+the repository root, as one shared library with a plain C interface loaded
+through ``ctypes``. Nothing is compiled or loaded at import: the CPU tests
+import this module on machines without ``nvcc``.
+
+``launches`` counts calls that launched a kernel and ``launches_by_route``
+splits it by route, so a run can show that its main path went through a
+kernel; only ``nearest_code_indices`` adds to them (one per call, also where
+the call is two kernels).
 """
 
 from __future__ import annotations
@@ -19,26 +30,53 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "nearest_code.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 MODES = {"highest": 0, "high": 1, "default": 2}
+ROUTES = ("mma", "fma")
 # Largest dynamic shared memory a block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232_448
+# The tensor-core kernel holds a warp's rows of z in registers: D / 16 depth
+# steps of 8 registers ("high": 16), so its depth is capped.
+MMA_MAX_D = 128
+# The tensor-core search kernel's block: rows of z per block (32 a warp) and
+# the number of warps that share a row's codes. The library holds the shapes
+# of MMA_BLOCKS; the first is what a call runs, the others are there to be
+# measured against it.
+MMA_BLOCKS = ((128, 2), (128, 1), (64, 2))
+MMA_BLOCK_ROWS, MMA_CODE_SPLIT = MMA_BLOCKS[0]
 
 launches = 0
+launches_by_route = {route: 0 for route in ROUTES}
 build_log = ""
 _lib = None
 
 
-def _nvcc() -> str:
+def reset_launch_counts() -> None:
+    global launches
+    launches = 0
+    for route in ROUTES:
+        launches_by_route[route] = 0
+
+
+def kernel_route(precision: str, d: int) -> str:
+    """Which kernel serves (precision, D): a pure function, decided here only."""
+    if precision not in MODES:
+        raise ValueError(f"precision must be one of {sorted(MODES)}, got {precision!r}")
+    if precision != "highest" and d % 16 == 0 and 16 <= d <= MMA_MAX_D:
+        return "mma"
+    return "fma"
+
+
+def nvcc_path() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     cand = os.path.join(cuda_home, "bin", "nvcc")
     if os.path.exists(cand):
@@ -49,31 +87,52 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> Path:
-    """Compile the kernel library (once per source and flags) and return its path.
+def sources(csrc: Path = CSRC) -> list:
+    return sorted(csrc.glob("*.cu"))
 
-    The ``-Xptxas -v`` report (registers, shared memory, spills) is kept in
-    ``build_log``.
+
+def source_digest(csrc: Path = CSRC, flags: Tuple[str, ...] = NVCC_FLAGS) -> str:
+    """Hash of every file under ``csrc`` (name and bytes) and of the flags."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(path.relative_to(csrc).as_posix().encode() + b"\0")
+        h.update(path.read_bytes() + b"\0")
+    return h.hexdigest()
+
+
+def build() -> Path:
+    """Compile the kernel library (once per sources and flags) and return its path.
+
+    Every source is compiled by its own ``nvcc``, all started together, and
+    the objects are linked into one library. The ``-Xptxas -v`` reports
+    (registers, shared memory, spills) are kept in ``build_log``.
     """
     global build_log
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib_path = BUILD_DIR / f"libnearest_code_{digest[:16]}.so"
+    lib_path = BUILD_DIR / f"libnearest_code_{source_digest(CSRC, NVCC_FLAGS)[:16]}.so"
     if lib_path.exists():
         build_log = f"(cached) {lib_path}"
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources(), objects)
+        ]
+        logs = [proc.communicate()[0] for proc in procs]
+        build_log = "".join(logs)
+        for src, proc in zip(sources(), procs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{build_log}")
+        out = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", out, *objects],
+                              capture_output=True, text=True)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n{build_log}")
+        os.replace(out, lib_path)
     return lib_path
 
 
@@ -81,14 +140,20 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        lib.vq_nearest_code.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.vq_nearest_code.restype = ctypes.c_int
-        lib.vq_nearest_code_smem_bytes.argtypes = [ctypes.c_int]
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.vq_nearest_code.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.vq_nearest_code.restype = i32
+        lib.vq_nearest_code_smem_bytes.argtypes = [i32]
         lib.vq_nearest_code_smem_bytes.restype = ctypes.c_size_t
-        lib.vq_error_string.argtypes = [ctypes.c_int]
+        lib.vq_nearest_code_mma.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr,
+        ]
+        lib.vq_nearest_code_mma.restype = i32
+        lib.vq_nearest_code_mma_scratch_bytes.argtypes = [i32, i32, i32]
+        lib.vq_nearest_code_mma_scratch_bytes.restype = ctypes.c_size_t
+        lib.vq_empty_kernel.argtypes = [ptr]
+        lib.vq_empty_kernel.restype = i32
+        lib.vq_error_string.argtypes = [i32]
         lib.vq_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
@@ -118,43 +183,98 @@ def _check_inputs(z_flat: torch.Tensor, codebook: torch.Tensor, precision: str) 
         raise ValueError("N and K must fit in int32")
 
 
+def resolve_route(route: Optional[str], precision: str, d: int) -> str:
+    """The route a call takes: ``kernel_route`` for None, else the route asked
+    for, which raises ``ValueError`` where the mode or the depth rules it out."""
+    picked = kernel_route(precision, d)
+    if route is None:
+        return picked
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES} or None, got {route!r}")
+    if route == "mma" and picked != "mma":
+        raise ValueError(
+            f"the mma route takes 'default' and 'high' with D a multiple of 16 up to "
+            f"{MMA_MAX_D}, not precision {precision!r} with D = {d}"
+        )
+    return route
+
+
+def _raise_on(err: int, lib, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.vq_error_string(err).decode()}")
+
+
 def nearest_code_indices(
-    z_flat: torch.Tensor, codebook: torch.Tensor, precision: str = "highest"
+    z_flat: torch.Tensor, codebook: torch.Tensor, precision: str = "highest",
+    route: Optional[str] = None,
 ) -> torch.Tensor:
-    """Launch the kernel: (N, D), (K, D) fp32 CUDA -> (N,) int32 nearest-code indices."""
+    """Launch a kernel: (N, D), (K, D) fp32 CUDA -> (N,) int32 nearest-code indices.
+
+    ``route`` None takes ``kernel_route(precision, D)``; an explicit route that
+    the mode or the depth does not allow raises ``ValueError``.
+    """
     global launches
     _check_inputs(z_flat, codebook, precision)
     n, d = z_flat.shape
     k = codebook.shape[0]
+    route = resolve_route(route, precision, d)
+    if route == "mma":
+        if z_flat.data_ptr() % 8:
+            raise ValueError("the mma route reads z_flat in 8-byte pairs: its storage is misaligned")
+        if (MMA_BLOCK_ROWS, MMA_CODE_SPLIT) not in MMA_BLOCKS:
+            raise ValueError(
+                f"no mma kernel with block {(MMA_BLOCK_ROWS, MMA_CODE_SPLIT)}: built are {MMA_BLOCKS}"
+            )
     idx = torch.empty((n,), dtype=torch.int32, device=z_flat.device)
     if n == 0:
         return idx
     lib = _library()
-    if lib.vq_nearest_code_smem_bytes(d) > MAX_SMEM_BYTES:
-        raise ValueError(f"embedding depth {d} needs more shared memory than a block has")
+    mode = MODES[precision]
     with torch.cuda.device(z_flat.device):
-        err = lib.vq_nearest_code(
-            z_flat.data_ptr(), codebook.data_ptr(), idx.data_ptr(),
-            n, k, d, MODES[precision], torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"nearest_code kernel launch failed: {lib.vq_error_string(err).decode()}"
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "mma":
+            scratch = torch.empty(
+                (lib.vq_nearest_code_mma_scratch_bytes(k, d, mode),),
+                dtype=torch.uint8, device=z_flat.device,
+            )
+            err = lib.vq_nearest_code_mma(
+                z_flat.data_ptr(), codebook.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
+                n, k, d, mode, MMA_BLOCK_ROWS, MMA_CODE_SPLIT, stream,
+            )
+        else:
+            if lib.vq_nearest_code_smem_bytes(d) > MAX_SMEM_BYTES:
+                raise ValueError(f"embedding depth {d} needs more shared memory than a block has")
+            err = lib.vq_nearest_code(
+                z_flat.data_ptr(), codebook.data_ptr(), idx.data_ptr(), n, k, d, mode, stream,
+            )
+    _raise_on(err, lib, f"nearest_code {route} kernel")
     launches += 1
+    launches_by_route[route] += 1
     return idx
 
 
 def nearest_code_cuda(
-    z_flat: torch.Tensor, codebook: torch.Tensor, precision: str = "highest"
+    z_flat: torch.Tensor, codebook: torch.Tensor, precision: str = "highest",
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(N, D), (K, D) -> (z_q (N, D), indices (N,) int32) on the card.
 
     The row gather is an exact ``index_select`` outside the kernel, as the
     JAX wrapper gathers with ``jnp.take`` (pallas_quantizer.py:250).
     """
-    idx = nearest_code_indices(z_flat, codebook, precision)
+    idx = nearest_code_indices(z_flat, codebook, precision, route)
     return codebook.index_select(0, idx), idx
 
 
-__all__ = ["build", "nearest_code_cuda", "nearest_code_indices", "launches"]
+def launch_empty_kernel() -> None:
+    """Launch a kernel that does nothing on the current stream: the launch
+    floor that the smoke script times beside the kernels' bounds."""
+    lib = _library()
+    _raise_on(lib.vq_empty_kernel(torch.cuda.current_stream().cuda_stream), lib, "empty kernel")
+
+
+__all__ = [
+    "build", "kernel_route", "launch_empty_kernel", "launches", "launches_by_route",
+    "nearest_code_cuda", "nearest_code_indices", "reset_launch_counts", "resolve_route",
+    "source_digest",
+]
