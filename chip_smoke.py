@@ -13,10 +13,9 @@ stops the script with a non-zero exit and no result line:
    tensor-core instructions in each built kernel;
 2. the kernels against their plain PyTorch version on the card, in all three
    precision modes, at the main path's shapes, the TPU kernel test's shapes
-   and a ragged-K shape: for each the route the dispatch picks (the "mma"
-   kernel with each of its block shapes) and, where that is "mma", the "fma"
-   route too. z_q must be bit-exactly codebook[idx], every index mismatch a
-   near-tie (float64 scores within 1e-5 * (||z||^2 + max ||e||^2)), and a
+   and a ragged-K shape: for each the route the dispatch picks and, where
+   that is "mma", the "fma" route too. z_q must be bit-exactly
+   codebook[idx], every index mismatch a near-tie (float64 scores within 1e-5 * (||z||^2 + max ||e||^2)), and a
    duplicated codebook must give every index < K/2 (first minimum wins);
 3. latent extraction, the main path: the trained bf16 checkpoint
    (artifacts/e2e_r5, "default" quantizer) over the 12,000 synthetic CIFAR
@@ -62,7 +61,7 @@ MAIN_SHAPE = (16_384, 512, 64)        # extraction: batch 256 x 8 x 8 latents
 BENCH_SHAPE = (65_536, 512, 64)       # the JAX bench.py batch of 1,024
 TPU_TEST_SHAPES = ((2048, 512, 64), (2048, 8192, 256), (1000, 300, 48))
 RAGGED_K_SHAPE = (4096, 301, 64)      # K no multiple of 8, inside the "mma" envelope
-SPIN_CYCLES = 20_000_000              # device spin that lets the host queue ahead
+SPIN_CYCLES = 20_000_000              # device spin (about 11 ms) that lets the host queue ahead
 DEVICE = "cuda"
 
 
@@ -74,23 +73,34 @@ def check(cond: bool, msg: str) -> None:
 def time_ms(fn, iters: int = 50, warmup: int = 5, queue_ahead: bool = True) -> float:
     """Mean device time of ``fn`` over ``iters`` calls, from CUDA events.
 
-    With ``queue_ahead`` the card first spins for about 11 ms, so the host
-    has queued the calls before the first one runs and the events time the
-    card alone; without it a short kernel is timed at the host's pace.
+    With ``queue_ahead`` the card first spins, so the host has queued the
+    calls before the first one runs and the events time the card alone. The
+    spin must outlast the queueing: if it has ended by the time the last call
+    is queued, the timing is made again behind a spin twice as long, and the
+    function fails when no spin up to eight times the first is long enough.
+    Without ``queue_ahead`` a short kernel is timed at the host's pace.
     """
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if queue_ahead:
-        torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    spin = SPIN_CYCLES
+    while True:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        spun = torch.cuda.Event()
+        if queue_ahead:
+            torch.cuda._sleep(spin)
+        spun.record()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        host_was_ahead = not spun.query()  # the card is still spinning
+        end.synchronize()
+        if host_was_ahead or not queue_ahead:
+            return start.elapsed_time(end) / iters
+        spin *= 2
+        check(spin <= 8 * SPIN_CYCLES, "time_ms: the host never queued its calls ahead of the card")
 
 
 def alternate(fns: dict) -> dict:
@@ -222,13 +232,6 @@ def main() -> int:
     # -- phase 2: kernels vs plain on the card --------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     main_err = {}
-    # the block the main path runs, tried first
-    default_block = (cuda_quantizer.MMA_BLOCK_ROWS, cuda_quantizer.MMA_CODE_SPLIT)
-    blocks = [default_block] + [b for b in cuda_quantizer.MMA_BLOCKS if b != default_block]
-
-    def set_block(block):
-        cuda_quantizer.MMA_BLOCK_ROWS, cuda_quantizer.MMA_CODE_SPLIT = block
-
     for n, k, d in (MAIN_SHAPE, BENCH_SHAPE) + TPU_TEST_SHAPES + (RAGGED_K_SHAPE,):
         z = torch.randn(n, d, device=dev, generator=gen)
         cb = torch.randn(k, d, device=dev, generator=gen)
@@ -236,28 +239,21 @@ def main() -> int:
         for mode in MODES:
             _, idx_ref = nearest_code_torch(z, cb, mode)
             picked = cuda_quantizer.kernel_route(mode, d)
-            runs = [("fma", None)]
-            if picked == "mma":
-                runs = [("mma", block) for block in blocks] + runs
-            for route, block in runs:
-                if block is not None:
-                    set_block(block)
+            for route in dict.fromkeys((picked, "fma")):
                 zq, idx = cuda_quantizer.nearest_code_cuda(z, cb, mode, route)
                 torch.cuda.synchronize()
                 mism, near, gap = compare_assignments(z, cb, idx, idx_ref, mode)
                 exact = torch.equal(zq, cb.index_select(0, idx))
                 _, idx_dup = cuda_quantizer.nearest_code_cuda(z, cb_dup, mode, route)
                 dup_max = int(idx_dup.max())
-                label = route if block is None else f"{route}/{block[0]}x{block[1]}"
-                print(f"[2] N={n} K={k} D={d} {mode:8s} {label:9s} mismatches={mism} "
+                print(f"[2] N={n} K={k} D={d} {mode:8s} {route} mismatches={mism} "
                       f"near_ties={near} max_gap={gap:.3g} gather_exact={exact} "
                       f"dup_max_idx={dup_max} (< {k // 2})")
                 check(exact, "z_q is not bit-exactly codebook[idx]")
                 check(mism == near, f"{mism - near} index mismatches are not near-ties")
                 check(dup_max < k // 2, "duplicate codebook: first minimum did not win")
                 if (n, k, d) == MAIN_SHAPE:
-                    main_err.setdefault((mode, route), gap)
-    set_block(default_block)
+                    main_err[(mode, route)] = gap
 
     # -- phase 3: extraction, the main path -----------------------------------
     model, _metrics, hp = load_model(R5, device=DEVICE)
@@ -348,32 +344,23 @@ def main() -> int:
         cb_bf16 = cb.to(torch.bfloat16)
         for mode in MODES:
             picked = cuda_quantizer.kernel_route(mode, d)
-
-            def with_block(block, z=z, cb=cb, mode=mode):
-                def run():
-                    set_block(block)
-                    return cuda_quantizer.nearest_code_indices(z, cb, mode, "mma")
-                return run
-
             if mode == "default":
                 library = lambda: (e_sq - 2.0 * (z.to(torch.bfloat16) @ cb_bf16.T).float()).argmin(1)
             else:
                 library = lambda: (e_sq - 2.0 * (z @ cb.T)).argmin(1)
             fns = {"plain": lambda: code_scores(z, cb, mode).argmin(1)}
             if picked == "mma":
-                fns.update({"mma/%dx%d" % b: with_block(b) for b in blocks})
+                fns["mma"] = lambda: cuda_quantizer.nearest_code_indices(z, cb, mode, "mma")
             fns["fma"] = lambda: cuda_quantizer.nearest_code_indices(z, cb, mode, "fma")
             fns["library"] = library
             t = alternate(fns)  # plain, kernels, library, library, kernels, plain
-            set_block(default_block)
             kernel = lambda: cuda_quantizer.nearest_code_indices(z, cb, mode)
             b_ms, b_by = bound(n, k, d, mode)
             row = {"shape": [n, k, d], "mode": mode, "route": picked,
-                   "ms": t["mma/%dx%d" % default_block if picked == "mma" else "fma"],
+                   "ms": t[picked],
                    "call_ms": time_ms(kernel, queue_ahead=False),
                    "fma_ms": t["fma"], "plain_ms": t["plain"], "library_ms": t["library"],
                    "bound_ms": b_ms, "bound_by": b_by, "launch_floor_ms": launch_floor_ms}
-            row.update({"ms_%dx%d" % b: t["mma/%dx%d" % b] for b in blocks if picked == "mma"})
             rows.append(row)
             print(f"[5] {json.dumps(row)}")
     print(f"[5] card: {smi}; times from CUDA events, mean of 50 calls after 5 warm-up, queued "

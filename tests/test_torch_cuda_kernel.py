@@ -97,25 +97,6 @@ def test_cuda_kernel_vs_plain_on_card(shape, precision, route):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("block", cuda_quantizer.MMA_BLOCKS)
-@pytest.mark.parametrize("precision", ["high", "default"])
-def test_mma_kernel_block_shapes_on_card(precision, block, monkeypatch):
-    """Every block shape of the tensor-core kernel (rows x warps that share a
-    row's codes) agrees with the plain version; an unknown shape is refused."""
-    dev = _card()
-    monkeypatch.setattr(cuda_quantizer, "MMA_BLOCK_ROWS", block[0])
-    monkeypatch.setattr(cuda_quantizer, "MMA_CODE_SPLIT", block[1])
-    z, cb = (t.to(dev) for t in _inputs(1000, 300, 64, seed=4))
-    idx = cuda_quantizer.nearest_code_indices(z, cb, precision, "mma")
-    _, idx_ref = nearest_code_torch(z, cb, precision)
-    mism, near, gap = compare_assignments(z, cb, idx, idx_ref, precision)
-    assert mism == near, f"{mism - near} of {mism} mismatches are not near-ties (gap {gap})"
-    monkeypatch.setattr(cuda_quantizer, "MMA_BLOCK_ROWS", 96)
-    with pytest.raises(ValueError, match="no mma kernel with block"):
-        cuda_quantizer.nearest_code_indices(z, cb, precision, "mma")
-
-
-@pytest.mark.gpu
 def test_default_dispatch_on_card_follows_kernel_route():
     dev = _card()
     for precision, d in (("default", 64), ("highest", 64), ("high", 40)):

@@ -111,6 +111,23 @@ def test_build_digest_changes_with_any_source_and_with_the_flags(tmp_path):
     assert cuda_quantizer.source_digest(cuda_quantizer.CSRC, ("-O0",)) != base
 
 
+@pytest.mark.parametrize(
+    "k, d, precision, want",
+    [
+        (512, 64, "default", 4 * 512 + 2 * 512 * 64),
+        (512, 64, "high", 4 * 512 + 2 * 2 * 512 * 64),
+        # ||e||^2 is padded to four values, so the bf16 codebook behind it starts
+        # on 16 bytes, where the search kernel's 16-byte copies need it
+        (301, 64, "default", 4 * 304 + 2 * 301 * 64),
+        (301, 48, "high", 4 * 304 + 2 * 2 * 301 * 48),
+        (1, 16, "default", 4 * 4 + 2 * 16),
+    ],
+)
+def test_mma_scratch_bytes(k, d, precision, want):
+    assert cuda_quantizer.mma_scratch_bytes(k, d, precision) == want
+    assert (want - 2 * k * d * (2 if precision == "high" else 1)) % 16 == 0
+
+
 def test_cpu_path_moves_no_launch_count():
     z, cb = _inputs(40, 24, 64, seed=3)
     before = (cuda_quantizer.launches, dict(cuda_quantizer.launches_by_route))

@@ -17,10 +17,10 @@
 //    allocated here. The codebook is rounded once per call, not once per
 //    block of rows.
 //
-// 2. nearest_code_mma_kernel. One block owns ROWWARPS x 32 rows of z and has
-//    ROWWARPS x KSPLIT warps: each warp owns 32 rows as two 16-row tiles, and
-//    KSPLIT warps share the same rows, each taking 1/KSPLIT of the codes of
-//    every chunk. A warp reads its rows of z from device memory once, as
+// 2. nearest_code_mma_kernel. One block owns kRowWarps x 32 = 128 rows of z
+//    and has kRowWarps x kCodeSplit = 8 warps: each warp owns 32 rows as two
+//    16-row tiles, and kCodeSplit = 2 warps share the same rows, each taking
+//    half of the codes of every chunk. A warp reads its rows of z from device memory once, as
 //    fp32, rounds them to bf16 (for "high" also the bf16 of the remainder)
 //    and keeps them in registers as mma A fragments for the whole code loop.
 //    The block walks the codes in chunks of 128, staged in shared memory as
@@ -38,8 +38,8 @@
 //    never compared, each lane keeps a running (best value, best index) per
 //    row with codes in ascending order and a strict '<'. After the last chunk
 //    the four lanes of a quad reduce (value, index) lexicographically, so
-//    equal values take the smaller index; with KSPLIT > 1 the warps that
-//    shared the rows then meet in shared memory under the same rule. Rows
+//    equal values take the smaller index; the warps that shared the rows
+//    then meet in shared memory under the same rule. Rows
 //    >= N are never written. Two identical codes get bit-identical scores:
 //    every column of a product sees the same operands in the same order.
 //
@@ -68,7 +68,7 @@
 // and the compare-and-select of (value, index) costs the CUDA cores about as
 // much as the mma costs the tensor cores, with the B-fragment loads on top;
 // with one block an SM, one warp a scheduler hides little of it, which is
-// why KSPLIT = 2 is the default. wgmma (B read from shared memory by the
+// why two warps share a row's codes. wgmma (B read from shared memory by the
 // tensor cores), TMA and persistent blocks are left out.
 
 #include <cuda_bf16.h>
@@ -81,10 +81,25 @@
 
 namespace {
 
+// The block's shape is fixed; VQ_ROW_WARPS and VQ_CODE_SPLIT exist so that a
+// measuring script can compile another shape of this file beside it.
+#ifndef VQ_ROW_WARPS
+#define VQ_ROW_WARPS 4
+#endif
+#ifndef VQ_CODE_SPLIT
+#define VQ_CODE_SPLIT 2
+#endif
+
+constexpr int kRowWarps = VQ_ROW_WARPS;    // warps down the rows: 32 rows each
+constexpr int kCodeSplit = VQ_CODE_SPLIT;  // warps that share a row's codes
 constexpr int kChunk = 128;      // codes staged per shared-memory buffer
 constexpr int kGroup = 4;        // 8-code tiles multiplied at once
 constexpr int kRowTiles = 2;     // 16-row tiles per warp
 constexpr int kRowsPerWarp = 16 * kRowTiles;
+constexpr int kBlockRows = kRowWarps * kRowsPerWarp;
+constexpr int kThreads = kRowWarps * kCodeSplit * 32;
+constexpr int kTilesPerWarp = kChunk / 8 / kCodeSplit;  // 8-code tiles of a chunk per warp
+static_assert(kTilesPerWarp % kGroup == 0, "a warp's share of a chunk is whole groups");
 constexpr int kMaxDepthSteps = 8;  // D <= 128
 constexpr int kPrepareThreads = 128;
 
@@ -167,25 +182,21 @@ struct Layout {
   static constexpr int kPiecesPerRow = kDepth / 8;  // 16-byte pieces in one code's row
 };
 
-template <int DSTEPS, bool HIGH, int ROWWARPS, int KSPLIT>
-__global__ void __launch_bounds__(ROWWARPS * KSPLIT * 32)
+template <int DSTEPS, bool HIGH>
+__global__ void __launch_bounds__(kThreads)
 nearest_code_mma_kernel(const float* __restrict__ z, const __nv_bfloat16* __restrict__ cb_hi,
                         const __nv_bfloat16* __restrict__ cb_lo,
                         const float* __restrict__ e_sq, int32_t* __restrict__ idx, int n,
                         int k) {
   using L = Layout<DSTEPS, HIGH>;
   constexpr int kDepth = L::kDepth;
-  constexpr int kThreads = ROWWARPS * KSPLIT * 32;
-  constexpr int kBlockRows = ROWWARPS * kRowsPerWarp;
-  constexpr int kTilesPerWarp = kChunk / 8 / KSPLIT;  // 8-code tiles of a chunk per warp
-  static_assert(kTilesPerWarp % kGroup == 0, "a warp's share of a chunk is whole groups");
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int row_warp = warp % ROWWARPS;  // which 32 rows of the block
-  const int part = warp / ROWWARPS;      // which share of every chunk's codes
+  const int row_warp = warp % kRowWarps;  // which 32 rows of the block
+  const int part = warp / kRowWarps;      // which share of every chunk's codes
   const int g = lane >> 2;
   const int t = lane & 3;
   const int row_base = blockIdx.x * kBlockRows + row_warp * kRowsPerWarp;
@@ -361,7 +372,7 @@ nearest_code_mma_kernel(const float* __restrict__ z, const __nv_bfloat16* __rest
     }
   }
 
-  if constexpr (KSPLIT == 1) {
+  if constexpr (kCodeSplit == 1) {
 #pragma unroll
     for (int m = 0; m < kRowTiles; ++m) {
 #pragma unroll
@@ -373,9 +384,9 @@ nearest_code_mma_kernel(const float* __restrict__ z, const __nv_bfloat16* __rest
   } else {
     // The warps that shared a row's codes meet in shared memory (the staging
     // buffers are free after the loop's last barrier): one thread per row
-    // takes the least (value, index) of the KSPLIT shares.
+    // takes the least (value, index) of the kCodeSplit shares.
     float* red_v = reinterpret_cast<float*>(smem);
-    int* red_i = reinterpret_cast<int*>(smem + sizeof(float) * KSPLIT * kBlockRows);
+    int* red_i = reinterpret_cast<int*>(smem + sizeof(float) * kCodeSplit * kBlockRows);
     if (t == 0) {
 #pragma unroll
       for (int m = 0; m < kRowTiles; ++m) {
@@ -392,7 +403,7 @@ nearest_code_mma_kernel(const float* __restrict__ z, const __nv_bfloat16* __rest
       float v = red_v[r];
       int bi = red_i[r];
 #pragma unroll
-      for (int p = 1; p < KSPLIT; ++p) {
+      for (int p = 1; p < kCodeSplit; ++p) {
         const float ov = red_v[p * kBlockRows + r];
         const int oi = red_i[p * kBlockRows + r];
         if (better(ov, oi, v, bi)) {
@@ -406,63 +417,29 @@ nearest_code_mma_kernel(const float* __restrict__ z, const __nv_bfloat16* __rest
   }
 }
 
-// The scratch: e_sq (k fp32, padded to a multiple of 4), cb_hi, then cb_lo.
+// The scratch: e_sq (k fp32, padded to a multiple of 4), cb_hi, then cb_lo
+// ("high" only): 4 * ceil4(k) + 2 * k * d * (2 if "high" else 1) bytes.
 size_t esq_bytes(int k) { return sizeof(float) * (size_t)((k + 3) / 4 * 4); }
 
-size_t scratch_bytes(int k, int d, int mode) {
-  return esq_bytes(k) + sizeof(__nv_bfloat16) * (size_t)k * d * (mode == kHigh ? 2 : 1);
-}
-
-template <int DSTEPS, bool HIGH, int ROWWARPS, int KSPLIT>
+template <int DSTEPS, bool HIGH>
 cudaError_t launch_search(const float* z, const __nv_bfloat16* cb_hi,
                           const __nv_bfloat16* cb_lo, const float* e_sq, int32_t* idx, int n,
                           int k, cudaStream_t stream) {
-  auto kernel = nearest_code_mma_kernel<DSTEPS, HIGH, ROWWARPS, KSPLIT>;
+  auto kernel = nearest_code_mma_kernel<DSTEPS, HIGH>;
   const int smem = 2 * Layout<DSTEPS, HIGH>::kBufferBytes;
   if (smem > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  const int rows = ROWWARPS * kRowsPerWarp;
-  kernel<<<(n + rows - 1) / rows, ROWWARPS * KSPLIT * 32, smem, stream>>>(
-      z, cb_hi, cb_lo, e_sq, idx, n, k);
+  kernel<<<(n + kBlockRows - 1) / kBlockRows, kThreads, smem, stream>>>(z, cb_hi, cb_lo, e_sq,
+                                                                       idx, n, k);
   return cudaGetLastError();
-}
-
-// (block_rows, code_split), the second being the warps that share a row's
-// codes: (128, 1), (128, 2) or (64, 2).
-template <int DSTEPS, bool HIGH>
-cudaError_t launch_shape(int block_rows, int code_split, const float* z,
-                         const __nv_bfloat16* cb_hi, const __nv_bfloat16* cb_lo,
-                         const float* e_sq, int32_t* idx, int n, int k, cudaStream_t stream) {
-#define VQ_SHAPE_CASE(R, S)          \
-  if (block_rows == 32 * R && code_split == S) \
-    return launch_search<DSTEPS, HIGH, R, S>(z, cb_hi, cb_lo, e_sq, idx, n, k, stream);
-  VQ_SHAPE_CASE(2, 2) VQ_SHAPE_CASE(4, 1) VQ_SHAPE_CASE(4, 2)
-#undef VQ_SHAPE_CASE
-  return cudaErrorInvalidValue;
-}
-
-template <bool HIGH>
-cudaError_t launch_depth(int dsteps, int block_rows, int code_split, const float* z,
-                         const __nv_bfloat16* cb_hi, const __nv_bfloat16* cb_lo,
-                         const float* e_sq, int32_t* idx, int n, int k, cudaStream_t stream) {
-#define VQ_DEPTH_CASE(S)                                                                  \
-  case S:                                                                                 \
-    return launch_shape<S, HIGH>(block_rows, code_split, z, cb_hi, cb_lo, e_sq, idx, n, k, \
-                                 stream);
-  switch (dsteps) {
-    VQ_DEPTH_CASE(1) VQ_DEPTH_CASE(2) VQ_DEPTH_CASE(3) VQ_DEPTH_CASE(4)
-    VQ_DEPTH_CASE(5) VQ_DEPTH_CASE(6) VQ_DEPTH_CASE(7) VQ_DEPTH_CASE(8)
-    default: return cudaErrorInvalidValue;
-  }
-#undef VQ_DEPTH_CASE
 }
 
 template <bool HIGH>
 cudaError_t run(const float* z, const float* cb, int32_t* idx, unsigned char* scratch, int n,
-                int k, int d, int block_rows, int code_split, cudaStream_t stream) {
+                int k, int d, cudaStream_t stream) {
   float* e_sq = reinterpret_cast<float*>(scratch);
   __nv_bfloat16* cb_hi = reinterpret_cast<__nv_bfloat16*>(scratch + esq_bytes(k));
   __nv_bfloat16* cb_lo = cb_hi + (size_t)k * d;  // read only when HIGH
@@ -472,27 +449,28 @@ cudaError_t run(const float* z, const float* cb, int32_t* idx, unsigned char* sc
           cb, cb_hi, cb_lo, e_sq, k, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_depth<HIGH>(d / 16, block_rows, code_split, z, cb_hi, cb_lo, e_sq, idx, n, k,
-                            stream);
+#define VQ_DEPTH_CASE(S) \
+  case S: return launch_search<S, HIGH>(z, cb_hi, cb_lo, e_sq, idx, n, k, stream);
+  switch (d / 16) {
+    VQ_DEPTH_CASE(1) VQ_DEPTH_CASE(2) VQ_DEPTH_CASE(3) VQ_DEPTH_CASE(4)
+    VQ_DEPTH_CASE(5) VQ_DEPTH_CASE(6) VQ_DEPTH_CASE(7) VQ_DEPTH_CASE(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef VQ_DEPTH_CASE
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of scratch a call needs; mode 1 = high, 2 = default.
-size_t vq_nearest_code_mma_scratch_bytes(int k, int d, int mode) {
-  return scratch_bytes(k, d, mode);
-}
-
 // z (n, d) and cb (k, d) contiguous fp32, idx (n,) int32, scratch of
-// vq_nearest_code_mma_scratch_bytes(k, d, mode) bytes aligned to 16, all on
-// the current device; d a multiple of 16 up to 128; (block_rows, code_split)
-// one of (128, 1), (128, 2), (64, 2).
+// 4 * ceil4(k) + 2 * k * d * (2 if mode == 1 else 1) bytes aligned to 16, all
+// on the current device; d a multiple of 16 up to 128; mode 1 = high,
+// 2 = default.
 // Launches the prepare and the search kernel on `stream` and returns the CUDA
 // error code of the first launch that failed (0 = success).
 int vq_nearest_code_mma(const void* z, const void* cb, void* idx, void* scratch, int n, int k,
-                        int d, int mode, int block_rows, int code_split, void* stream) {
+                        int d, int mode, void* stream) {
   const float* zf = static_cast<const float*>(z);
   const float* cf = static_cast<const float*>(cb);
   int32_t* out = static_cast<int32_t*>(idx);
@@ -502,8 +480,8 @@ int vq_nearest_code_mma(const void* z, const void* cb, void* idx, void* scratch,
     return (int)cudaErrorInvalidValue;
   }
   switch (mode) {
-    case kHigh: return (int)run<true>(zf, cf, out, sc, n, k, d, block_rows, code_split, s);
-    case kDefault: return (int)run<false>(zf, cf, out, sc, n, k, d, block_rows, code_split, s);
+    case kHigh: return (int)run<true>(zf, cf, out, sc, n, k, d, s);
+    case kDefault: return (int)run<false>(zf, cf, out, sc, n, k, d, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -47,12 +47,6 @@ MAX_SMEM_BYTES = 232_448
 # The tensor-core kernel holds a warp's rows of z in registers: D / 16 depth
 # steps of 8 registers ("high": 16), so its depth is capped.
 MMA_MAX_D = 128
-# The tensor-core search kernel's block: rows of z per block (32 a warp) and
-# the number of warps that share a row's codes. The library holds the shapes
-# of MMA_BLOCKS; the first is what a call runs, the others are there to be
-# measured against it.
-MMA_BLOCKS = ((128, 2), (128, 1), (64, 2))
-MMA_BLOCK_ROWS, MMA_CODE_SPLIT = MMA_BLOCKS[0]
 
 launches = 0
 launches_by_route = {route: 0 for route in ROUTES}
@@ -145,12 +139,8 @@ def _library():
         lib.vq_nearest_code.restype = i32
         lib.vq_nearest_code_smem_bytes.argtypes = [i32]
         lib.vq_nearest_code_smem_bytes.restype = ctypes.c_size_t
-        lib.vq_nearest_code_mma.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr,
-        ]
+        lib.vq_nearest_code_mma.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.vq_nearest_code_mma.restype = i32
-        lib.vq_nearest_code_mma_scratch_bytes.argtypes = [i32, i32, i32]
-        lib.vq_nearest_code_mma_scratch_bytes.restype = ctypes.c_size_t
         lib.vq_empty_kernel.argtypes = [ptr]
         lib.vq_empty_kernel.restype = i32
         lib.vq_error_string.argtypes = [i32]
@@ -199,6 +189,13 @@ def resolve_route(route: Optional[str], precision: str, d: int) -> str:
     return route
 
 
+def mma_scratch_bytes(k: int, d: int, precision: str) -> int:
+    """Scratch of one tensor-core call, laid out as ``nearest_code_mma.cu`` reads
+    it: ||e||^2 (K fp32, padded to a multiple of 4), then the codebook as bf16
+    and, for ``high``, the bf16 of its remainder."""
+    return 4 * ((k + 3) // 4 * 4) + 2 * k * d * (2 if precision == "high" else 1)
+
+
 def _raise_on(err: int, lib, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed: {lib.vq_error_string(err).decode()}")
@@ -218,13 +215,8 @@ def nearest_code_indices(
     n, d = z_flat.shape
     k = codebook.shape[0]
     route = resolve_route(route, precision, d)
-    if route == "mma":
-        if z_flat.data_ptr() % 8:
-            raise ValueError("the mma route reads z_flat in 8-byte pairs: its storage is misaligned")
-        if (MMA_BLOCK_ROWS, MMA_CODE_SPLIT) not in MMA_BLOCKS:
-            raise ValueError(
-                f"no mma kernel with block {(MMA_BLOCK_ROWS, MMA_CODE_SPLIT)}: built are {MMA_BLOCKS}"
-            )
+    if route == "mma" and z_flat.data_ptr() % 8:
+        raise ValueError("the mma route reads z_flat in 8-byte pairs: its storage is misaligned")
     idx = torch.empty((n,), dtype=torch.int32, device=z_flat.device)
     if n == 0:
         return idx
@@ -234,12 +226,11 @@ def nearest_code_indices(
         stream = torch.cuda.current_stream().cuda_stream
         if route == "mma":
             scratch = torch.empty(
-                (lib.vq_nearest_code_mma_scratch_bytes(k, d, mode),),
-                dtype=torch.uint8, device=z_flat.device,
+                (mma_scratch_bytes(k, d, precision),), dtype=torch.uint8, device=z_flat.device,
             )
             err = lib.vq_nearest_code_mma(
                 z_flat.data_ptr(), codebook.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
-                n, k, d, mode, MMA_BLOCK_ROWS, MMA_CODE_SPLIT, stream,
+                n, k, d, mode, stream,
             )
         else:
             if lib.vq_nearest_code_smem_bytes(d) > MAX_SMEM_BYTES:
@@ -267,14 +258,17 @@ def nearest_code_cuda(
 
 
 def launch_empty_kernel() -> None:
-    """Launch a kernel that does nothing on the current stream: the launch
-    floor that the smoke script times beside the kernels' bounds."""
+    """Launch a kernel that does nothing on the current device's current
+    stream: the launch floor that the smoke script times beside the kernels'
+    bounds."""
     lib = _library()
-    _raise_on(lib.vq_empty_kernel(torch.cuda.current_stream().cuda_stream), lib, "empty kernel")
+    with torch.cuda.device(torch.cuda.current_device()):
+        err = lib.vq_empty_kernel(torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, lib, "empty kernel")
 
 
 __all__ = [
     "build", "kernel_route", "launch_empty_kernel", "launches", "launches_by_route",
-    "nearest_code_cuda", "nearest_code_indices", "reset_launch_counts", "resolve_route",
+    "mma_scratch_bytes", "nearest_code_cuda", "nearest_code_indices", "reset_launch_counts", "resolve_route",
     "source_digest",
 ]
