@@ -12,8 +12,9 @@ stops the script with a non-zero exit and no result line:
    (``-Xptxas -v``: registers, shared memory, spills) and the count of
    tensor-core instructions in each built kernel;
 2. the kernels against their plain PyTorch version on the card, in all three
-   precision modes, at the main path's shapes, the TPU kernel test's shapes
-   and a ragged-K shape: for each the route the dispatch picks and, where
+   precision modes, at the main path's shapes, the TPU kernel test's shapes,
+   a ragged-K shape and the CUDA-core kernel's edges (D = 45, D = 452,
+   N = 37): for each the route the dispatch picks and, where
    that is "mma", the "fma" route too. z_q must be bit-exactly
    codebook[idx], every index mismatch a near-tie (float64 scores within 1e-5 * (||z||^2 + max ||e||^2)), and a
    duplicated codebook must give every index < K/2 (first minimum wins);
@@ -61,6 +62,9 @@ MAIN_SHAPE = (16_384, 512, 64)        # extraction: batch 256 x 8 x 8 latents
 BENCH_SHAPE = (65_536, 512, 64)       # the JAX bench.py batch of 1,024
 TPU_TEST_SHAPES = ((2048, 512, 64), (2048, 8192, 256), (1000, 300, 48))
 RAGGED_K_SHAPE = (4096, 301, 64)      # K no multiple of 8, inside the "mma" envelope
+# the CUDA-core kernel's edges: D no multiple of 4 with ragged N and K (scalar
+# loads), a depth of many chunks, N below one block
+FMA_EDGE_SHAPES = ((1000, 300, 45), (1000, 300, 452), (37, 512, 64))
 SPIN_CYCLES = 20_000_000              # device spin (about 11 ms) that lets the host queue ahead
 DEVICE = "cuda"
 
@@ -232,7 +236,7 @@ def main() -> int:
     # -- phase 2: kernels vs plain on the card --------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     main_err = {}
-    for n, k, d in (MAIN_SHAPE, BENCH_SHAPE) + TPU_TEST_SHAPES + (RAGGED_K_SHAPE,):
+    for n, k, d in (MAIN_SHAPE, BENCH_SHAPE) + TPU_TEST_SHAPES + (RAGGED_K_SHAPE,) + FMA_EDGE_SHAPES:
         z = torch.randn(n, d, device=dev, generator=gen)
         cb = torch.randn(k, d, device=dev, generator=gen)
         cb_dup = torch.cat([cb[: k // 2], cb[: k // 2]])
@@ -254,6 +258,18 @@ def main() -> int:
                 check(dup_max < k // 2, "duplicate codebook: first minimum did not win")
                 if (n, k, d) == MAIN_SHAPE:
                     main_err[(mode, route)] = gap
+
+    # a z that starts 4 bytes off a 16-byte boundary takes the CUDA-core
+    # kernel's scalar loads and must give the indices of the aligned copy
+    z = torch.randn(1000, 64, device=dev, generator=gen)
+    cb = torch.randn(300, 64, device=dev, generator=gen)
+    z_off = torch.empty(z.numel() + 1, device=dev)[1:].view_as(z).copy_(z)
+    for mode in MODES:
+        same = torch.equal(cuda_quantizer.nearest_code_indices(z_off, cb, mode, "fma"),
+                           cuda_quantizer.nearest_code_indices(z, cb, mode, "fma"))
+        print(f"[2] N=1000 K=300 D=64 {mode:8s} fma z at {z_off.data_ptr() % 16} bytes past a "
+              f"16-byte boundary: same indices={same}")
+        check(same, "the scalar-load path disagrees with the 16-byte-load path")
 
     # -- phase 3: extraction, the main path -----------------------------------
     model, _metrics, hp = load_model(R5, device=DEVICE)

@@ -7,8 +7,12 @@ the same function, and ``kernel_route`` picks one from (precision, D) alone:
            (``mma.sync`` on bf16 operands, fp32 sums). Takes ``default`` and
            ``high`` with D a multiple of 16 up to ``MMA_MAX_D``. A call is a
            small prepare kernel over the codebook and the search kernel.
-``"fma"``  ``csrc/nearest_code.cu``: fp32 FMAs on the CUDA cores. Takes every
-           mode and depth; serves ``highest`` and what ``"mma"`` does not take.
+``"fma"``  ``csrc/nearest_code.cu``: fp32 FMAs on the CUDA cores, 8 x 8 scores a
+           thread. Takes every mode and every depth: it walks the depth in
+           chunks, and a block keeps its rows of z in shared memory where all
+           their chunks fit and stages them chunk by chunk where they do not
+           (``fma_smem_bytes``). Serves ``highest`` and what ``"mma"`` does
+           not take.
 
 The sources are built with ``nvcc`` at first use, into ``build/kernels/`` at
 the repository root, as one shared library with a plain C interface loaded
@@ -47,6 +51,11 @@ MAX_SMEM_BYTES = 232_448
 # The tensor-core kernel holds a warp's rows of z in registers: D / 16 depth
 # steps of 8 registers ("high": 16), so its depth is capped.
 MMA_MAX_D = 128
+# The CUDA-core kernel's tile, as ``csrc/nearest_code.cu`` fixes it: rows of z a
+# block owns, codes per tile, depths staged per chunk.
+FMA_BLOCK_ROWS = 128
+FMA_TILE_CODES = 128
+FMA_DEPTH_CHUNK = 32
 
 launches = 0
 launches_by_route = {route: 0 for route in ROUTES}
@@ -137,8 +146,6 @@ def _library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.vq_nearest_code.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.vq_nearest_code.restype = i32
-        lib.vq_nearest_code_smem_bytes.argtypes = [i32]
-        lib.vq_nearest_code_smem_bytes.restype = ctypes.c_size_t
         lib.vq_nearest_code_mma.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.vq_nearest_code_mma.restype = i32
         lib.vq_empty_kernel.argtypes = [ptr]
@@ -196,6 +203,30 @@ def mma_scratch_bytes(k: int, d: int, precision: str) -> int:
     return 4 * ((k + 3) // 4 * 4) + 2 * k * d * (2 if precision == "high" else 1)
 
 
+def fma_smem_bytes(d: int, precision: str) -> int:
+    """Dynamic shared memory of one block of the CUDA-core kernel at depth D,
+    as ``nearest_code.cu`` reckons it (``Layout`` and ``launch``). A slot holds
+    one depth chunk, depth-major (``high``: a hi and a lo plane). The block has
+    two slots of code chunks that take turns, ||e||^2 of two code tiles, and
+    for z either a slot for every chunk of the depth (z resident, where that
+    fits in ``MAX_SMEM_BYTES``) or two that take turns. No depth is refused:
+    beyond the resident envelope the figure stops growing."""
+    if precision not in MODES:
+        raise ValueError(f"precision must be one of {sorted(MODES)}, got {precision!r}")
+    if d < 1:
+        raise ValueError(f"embedding depth must be positive, got {d}")
+    planes = 2 if precision == "high" else 1
+    z_slot = planes * FMA_DEPTH_CHUNK * FMA_BLOCK_ROWS
+    e_slot = planes * FMA_DEPTH_CHUNK * FMA_TILE_CODES
+
+    def nbytes(z_slots: int) -> int:
+        return 4 * (z_slots * z_slot + 2 * e_slot + 2 * FMA_TILE_CODES)
+
+    chunks = -(-d // FMA_DEPTH_CHUNK)
+    resident = chunks <= (MAX_SMEM_BYTES - nbytes(0)) // (4 * z_slot)
+    return nbytes(chunks if resident else 2)
+
+
 def _raise_on(err: int, lib, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed: {lib.vq_error_string(err).decode()}")
@@ -233,8 +264,6 @@ def nearest_code_indices(
                 n, k, d, mode, stream,
             )
         else:
-            if lib.vq_nearest_code_smem_bytes(d) > MAX_SMEM_BYTES:
-                raise ValueError(f"embedding depth {d} needs more shared memory than a block has")
             err = lib.vq_nearest_code(
                 z_flat.data_ptr(), codebook.data_ptr(), idx.data_ptr(), n, k, d, mode, stream,
             )
@@ -268,7 +297,7 @@ def launch_empty_kernel() -> None:
 
 
 __all__ = [
-    "build", "kernel_route", "launch_empty_kernel", "launches", "launches_by_route",
+    "build", "fma_smem_bytes", "kernel_route", "launch_empty_kernel", "launches", "launches_by_route",
     "mma_scratch_bytes", "nearest_code_cuda", "nearest_code_indices", "reset_launch_counts", "resolve_route",
     "source_digest",
 ]
