@@ -32,7 +32,24 @@ stops the script with a non-zero exit and no result line:
    version, and one PyTorch matmul + argmin as a yardstick (the port never
    calls it);
 6. ``torch.profiler`` over an extraction of 2,560 images: device time by
-   kernel and the share of the wall time in which the card was busy.
+   kernel and the share of the wall time in which the card was busy;
+7. training, fp32 / "highest" (the config's default): ``train_vqvae`` over the
+   synthetic CIFAR set at batch 256 (16,384 rows a step), 60 updates in
+   chunks of 10 with the set staged on the card, saving; it must launch the
+   "fma" kernel 60 times, keep every metric finite and lower the
+   reconstruction error, and its last checkpoint must reload through
+   ``load_model`` and feed ``extract_latents``. One step's gradients on the
+   card are held against the port on the CPU (same weights, a batch of 32;
+   largest error relative to the parameter's largest gradient at most 1e-4,
+   which TF32 in a backward conv would break), and the same 5 updates run
+   twice show how far atomics let two runs part;
+8. training in bf16 / "default" (20 updates, 20 launches of the "mma" kernel)
+   and with an EMA codebook in fp32 (20 updates, 20 "fma" launches; the EMA
+   counts must sum to 16,384 * (1 - 0.99^20) and the codebook equal
+   means / smoothed counts);
+9. times of a train step (batch 32 and 256 in fp32, 256 in bf16), of the
+   optimizer update, the scatter-add backward and the EMA update alone, and a
+   ``torch.profiler`` breakdown of 20 steps at batch 256: records, not checks.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -44,6 +61,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -65,6 +83,17 @@ RAGGED_K_SHAPE = (4096, 301, 64)      # K no multiple of 8, inside the "mma" env
 # the CUDA-core kernel's edges: D no multiple of 4 with ragged N and K (scalar
 # loads), a depth of many chunks, N below one block
 FMA_EDGE_SHAPES = ((1000, 300, 45), (1000, 300, 452), (37, 512, 64))
+# device items of a profile by the first group whose key their name holds
+DEVICE_ITEM_GROUPS = (
+    ("hand-written kernels", ("nearest_code", "prepare_codebook")),
+    ("copies", ("Memcpy", "Memset")),
+    ("cuDNN layout conversions", ("nhwcToNchw", "nchwToNhwc")),
+    ("optimizer (foreach)", ("multi_tensor_apply",)),
+    ("scatter-add, gathers", ("indexFunc", "index_", "gather", "scatter")),
+    ("convolutions (cuDNN, cuBLAS)", ("fprop", "dgrad", "wgrad", "winograd", "gemm", "convolve",
+                                      "cudnn", "cutlass", "nvjet")),
+)
+TRAIN_BATCH = 256                     # a train step of 16,384 rows
 SPIN_CYCLES = 20_000_000              # device spin (about 11 ms) that lets the host queue ahead
 DEVICE = "cuda"
 
@@ -148,25 +177,27 @@ def bound(n: int, k: int, d: int, mode: str):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def profile_extraction(model, data: np.ndarray) -> None:
-    """torch.profiler over ``extract_latents`` (batch 256): device time by
-    kernel, and the share of the wall time in which the card ran anything
-    (kernels and copies, overlaps merged). The profiler's own cost is in
-    the wall time, so the busy share is a lower bound."""
+def profile_device(tag: str, what: str, fn, top: int = 12) -> None:
+    """torch.profiler over ``fn()``: device time by kernel, the share of the
+    wall time in which the card ran anything (kernels and copies, overlaps
+    merged), the hand-written kernels' share and the number of
+    device-to-host copies. The profiler's own cost is in the wall time, so
+    the busy share is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from vqvae_tpu_torch.pipelines.extract import extract_latents
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        extract_latents(model, data, batch_size=256)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    # kernels and copies only: a profiler annotation mirrored onto the device
+    # (an optimizer's step) spans the gaps between its kernels
+    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False) and "#" not in e.name]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device_events)
     if not spans:
-        print("[6] the profiler saw no device activity: busy share not measured")
+        print(f"[{tag}] the profiler saw no device activity: busy share not measured")
         return
     busy, (cur_s, cur_e) = 0.0, spans[0]
     for s, e in spans[1:]:
@@ -176,18 +207,35 @@ def profile_extraction(model, data: np.ndarray) -> None:
         cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     by_name, count = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-            count[e.name] = count.get(e.name, 0) + 1
-    print(f"[6] profile of extract_latents over {len(data)} images: wall {wall_us / 1e3:.3f} ms "
-          f"(profiler on), device busy {busy / 1e3:.3f} ms = {busy / wall_us:.3f} of wall")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"[6]   {us / 1e3:9.3f} ms  {name[:110]}")
+    for e in device_events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        count[e.name] = count.get(e.name, 0) + 1
+    print(f"[{tag}] profile of {what}: wall {wall_us / 1e3:.3f} ms (profiler on), device busy "
+          f"{busy / 1e3:.3f} ms = {busy / wall_us:.3f} of wall, {len(by_name)} distinct device "
+          f"items in {len(device_events)} launches and copies")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"[{tag}]   {us / 1e3:9.3f} ms  {count[name]:5d} x  {name[:100]}")
     for name, us in by_name.items():  # the hand-written kernels, wherever they rank
         if "nearest_code" in name or "prepare_codebook" in name:
-            print(f"[6] hand-written: {us / 1e3:.3f} ms = {us / busy:.4f} of busy in "
+            print(f"[{tag}] hand-written: {us / 1e3:.3f} ms = {us / busy:.4f} of busy in "
                   f"{count[name]} launches ({us / count[name]:.2f} us each)  {name[:70]}")
+    groups = {}
+    for name, us in by_name.items():
+        group = next((g for g, keys in DEVICE_ITEM_GROUPS if any(k in name for k in keys)),
+                     "elementwise and reductions")
+        groups[group] = groups.get(group, 0.0) + us
+    print(f"[{tag}] device time by group, ms (share of the items' sum): " + "; ".join(
+        f"{g} {us / 1e3:.3f} ({us / sum(groups.values()):.3f})"
+        for g, us in sorted(groups.items(), key=lambda kv: -kv[1])))
+    dtoh = sum(c for name, c in count.items() if "Memcpy DtoH" in name)
+    print(f"[{tag}] device-to-host copies (Memcpy DtoH): {dtoh}")
+
+
+def relative_gradient_errors(grads: dict, grads_ref: dict) -> dict:
+    """Per parameter: the largest absolute error over the largest absolute
+    gradient of the reference."""
+    return {name: float((grads[name].cpu() - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+            for name, ref in grads_ref.items()}
 
 
 def main() -> int:
@@ -198,6 +246,7 @@ def main() -> int:
         print(f"chip_smoke: no vqvae_tpu_torch package beside {__file__}", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from vqvae_tpu_torch.config import TrainConfig, VQVAEConfig
     from vqvae_tpu_torch.data.datasets import load_dataset
     from vqvae_tpu_torch.ops import cuda_quantizer
     from vqvae_tpu_torch.ops.quantizer import (
@@ -207,6 +256,7 @@ def main() -> int:
     )
     from vqvae_tpu_torch.pipelines.extract import extract_latents
     from vqvae_tpu_torch.pipelines.viz import load_model, reconstruct
+    from vqvae_tpu_torch.train.vqvae_train import VQVAETrainer, metrics_to_host, train_vqvae
 
     torch.set_float32_matmul_precision("highest")  # the plain version's fp32 matmul
     dev = torch.device(DEVICE)
@@ -275,7 +325,7 @@ def main() -> int:
     model, _metrics, hp = load_model(R5, device=DEVICE)
     check(hp["compute_dtype"] == "bfloat16" and hp["quantizer_precision"] == "default",
           f"unexpected e2e_r5 hyperparameters {hp}")
-    train, val, _var, info = load_dataset("CIFAR10", os.path.join(ROOT, "data"))
+    train, val, x_train_var, info = load_dataset("CIFAR10", os.path.join(ROOT, "data"))
     data = np.concatenate([train.data, val.data])
     extract_latents(model, data[:256], batch_size=256)  # cuDNN warm-up
     torch.cuda.synchronize()
@@ -385,7 +435,203 @@ def main() -> int:
     main_rows = {r["mode"]: r for r in rows if tuple(r["shape"]) == MAIN_SHAPE}
 
     # -- phase 6: where the extraction time goes ------------------------------
-    profile_extraction(model, data[:2560])
+    profile_device("6", "extract_latents over 2560 images",
+                   lambda: extract_latents(model, data[:2560], batch_size=256))
+
+    # -- phase 7: training, fp32 / highest (route fma) --------------------------
+    dataset = (train, val, x_train_var, info)
+    results = os.path.join(ROOT, "build", "smoke_results")
+    shutil.rmtree(results, ignore_errors=True)
+    cfg7 = TrainConfig(batch_size=TRAIN_BATCH, n_updates=60, log_interval=20, steps_per_dispatch=10,
+                       save=True, filename="smoke_fp32", results_dir=results)
+    cuda_quantizer.reset_launch_counts()
+    t0 = time.perf_counter()
+    state7, history7, trainer7 = train_vqvae(VQVAEConfig(), cfg7, dataset=dataset, device=DEVICE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches_fp32 = dict(cuda_quantizer.launches_by_route)
+    first = float(np.mean(history7.recon_errors[:10]))
+    last = float(np.mean(history7.recon_errors[-10:]))
+    print(f"[7] train_vqvae fp32/highest: 60 updates at batch {TRAIN_BATCH} in {dt:.3f} s (host clock, first "
+          f"cuDNN calls and 4 checkpoints included), kernel launches {launches_fp32}; recon_error "
+          f"mean of steps 0-9 {first:.6f}, of steps 50-59 {last:.6f}; loss {history7.loss_vals[0]:.6f} "
+          f"-> {history7.loss_vals[-1]:.6f}; perplexity {history7.perplexities[0]:.3f} -> "
+          f"{history7.perplexities[-1]:.3f}")
+    check(launches_fp32 == {"mma": 0, "fma": 60}, f"expected 60 fma launches, got {launches_fp32}")
+    check(state7.step == 60 and state7.optimizer.count == 60 and len(history7.loss_vals) == 60,
+          "the run did not take 60 updates")
+    check(trainer7._device_data is not None and trainer7._device_data.device.type == dev.type,
+          "the training set was not staged on the card")
+    check(all(np.isfinite(v).all() for v in
+              (history7.loss_vals, history7.recon_errors, history7.perplexities)),
+          "a training metric is not finite")
+    check(last < first, "the reconstruction error did not fall over 60 updates")
+    saved = sorted(f for f in os.listdir(results) if f.endswith(".npz"))
+    check(saved == [f"vqvae_smoke_fp32_step{s}.npz" for s in (0, 20, 40, 59)],
+          f"unexpected checkpoints {saved}")
+    model7, metrics7, hp7 = load_model(os.path.join(results, "vqvae_smoke_fp32_step59.npz"), DEVICE)
+    check(len(metrics7["loss_vals"]) == 60 and hp7["batch_size"] == TRAIN_BATCH, "checkpoint metadata")
+    check(torch.equal(model7.codebook, state7.model.codebook.detach()), "checkpoint != final state")
+    codes7 = extract_latents(model7, data[:2560], batch_size=256)
+    print(f"[7] checkpoint of step 59 reloaded: extract_latents {codes7.shape}, "
+          f"{len(np.unique(codes7))} distinct codes")
+    check(codes7.shape == (len(data[:2560]), 64) and codes7.min() >= 0 and codes7.max() < 512,
+          "codes from the trained checkpoint out of shape or range")
+
+    # one step's gradients on the card against the port on the CPU: the same
+    # initial weights (drawn on the CPU from one seed) and a batch of 32 whose
+    # codes agree on both (a near-tie flip would move a codebook row's gradient)
+    def gradients(trainer, x):
+        state = trainer.init_state(torch.Generator().manual_seed(7))
+        state, _m = trainer.step(state, x)  # the step moves the weights, not the gradients
+        return {n: p.grad.clone() for n, p in state.model.named_parameters()}
+
+    cpu_trainer = VQVAETrainer(VQVAEConfig(), TrainConfig(), x_train_var, device="cpu")
+    gpu_trainer = VQVAETrainer(VQVAEConfig(), TrainConfig(), x_train_var, device=DEVICE)
+    for start in range(0, 32 * 8, 32):
+        x32 = train.data[start:start + 32]
+        with torch.no_grad():
+            probe_cpu = cpu_trainer.init_state(torch.Generator().manual_seed(7)).model
+            probe_gpu = gpu_trainer.init_state(torch.Generator().manual_seed(7)).model
+            same = torch.equal(probe_cpu.codes(torch.from_numpy(x32)),
+                               probe_gpu.codes(torch.from_numpy(x32).to(dev)).cpu())
+        if same:
+            break
+    check(same, "no batch of 32 among 8 gives the same codes on the card and the CPU")
+    grads_cpu = gradients(cpu_trainer, x32)
+    errs = relative_gradient_errors(gradients(gpu_trainer, x32), grads_cpu)
+    worst = max(errs, key=errs.get)
+    print(f"[7] gradients of one step, card vs CPU (batch of 32 from image {start}, "
+          f"{len(errs)} parameters): largest error / largest gradient, worst {errs[worst]:.3g} "
+          f"({worst}), median {float(np.median(list(errs.values()))):.3g}")
+    # for the record: the same with TF32 allowed everywhere, and with the
+    # scope held around the forward only (backward at the process default)
+    tf32_trainer = VQVAETrainer(VQVAEConfig(conv_precision="default"), TrainConfig(), x_train_var,
+                                device=DEVICE)
+    errs_tf32 = relative_gradient_errors(gradients(tf32_trainer, x32), grads_cpu)
+    st = gpu_trainer.init_state(torch.Generator().manual_seed(7))
+    loss, *_ = gpu_trainer._forward(st.model, torch.from_numpy(x32).to(dev))  # convs scope themselves
+    loss.backward()
+    errs_fwd = relative_gradient_errors(
+        {n: p.grad for n, p in st.model.named_parameters()}, grads_cpu)
+    print(f"[7]   conv_precision='default' (TF32 allowed): worst {max(errs_tf32.values()):.3g}; "
+          f"'highest' scoped around the forward only, backward at the process default "
+          f"(torch.backends.cudnn.conv.fp32_precision = "
+          f"{torch.backends.cudnn.conv.fp32_precision!r}): worst {max(errs_fwd.values()):.3g}")
+    check(errs[worst] <= 1e-4, f"gradients on the card drift from the CPU (TF32 in a backward conv?): {errs[worst]}")
+
+    # atomics: the same 5 updates twice from the same state
+    idx5 = np.stack([np.arange(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH) for i in range(5)])
+    finals = []
+    for _ in range(2):
+        st = trainer7.init_state(torch.Generator().manual_seed(11))
+        st, m5 = trainer7.steps_by_index(st, idx5)
+        finals.append(([p.detach().clone() for p in st.model.parameters()], metrics_to_host(m5)))
+    diff = max(float((a - b).abs().max()) for a, b in zip(finals[0][0], finals[1][0]))
+    dloss = float(np.abs(finals[0][1]["loss"] - finals[1][1]["loss"]).max())
+    print(f"[7] the same 5 updates twice from the same state (batch {TRAIN_BATCH}): largest parameter "
+          f"difference {diff:.3g}, largest loss difference {dloss:.3g} (index_add_ adds with atomics)")
+
+    # -- phase 8: training in bf16 / default (route mma) and with an EMA codebook ---
+    cfg8 = TrainConfig(batch_size=TRAIN_BATCH, n_updates=20, log_interval=20, steps_per_dispatch=10)
+    vq_bf16 = VQVAEConfig(compute_dtype="bfloat16", quantizer_precision="default")
+    cuda_quantizer.reset_launch_counts()
+    state8, history8, _t8 = train_vqvae(vq_bf16, cfg8, dataset=dataset, device=DEVICE)
+    torch.cuda.synchronize()
+    launches_bf16 = dict(cuda_quantizer.launches_by_route)
+    print(f"[8] train_vqvae bf16/default: 20 updates at batch {TRAIN_BATCH}, kernel launches {launches_bf16}; "
+          f"recon_error {history8.recon_errors[0]:.6f} -> {history8.recon_errors[-1]:.6f}, "
+          f"loss {history8.loss_vals[0]:.6f} -> {history8.loss_vals[-1]:.6f}")
+    check(launches_bf16 == {"mma": 20, "fma": 0}, f"expected 20 mma launches, got {launches_bf16}")
+    check(np.isfinite(history8.loss_vals).all() and np.isfinite(history8.perplexities).all(),
+          "bf16 training metrics not finite")
+    check(all(p.dtype == torch.float32 and bool(torch.isfinite(p).all())
+              for p in state8.model.parameters()), "bf16 training: parameters not finite fp32")
+
+    vq_ema = VQVAEConfig(ema_codebook=True)
+    cuda_quantizer.reset_launch_counts()
+    state_e, history_e, _te = train_vqvae(vq_ema, cfg8, dataset=dataset, device=DEVICE)
+    torch.cuda.synchronize()
+    launches_ema = dict(cuda_quantizer.launches_by_route)
+    counts_sum = float(state_e.ema_counts.sum())
+    want_sum = 64 * TRAIN_BATCH * (1.0 - vq_ema.ema_decay ** 20)
+    n_tot = state_e.ema_counts.sum()
+    smoothed = ((state_e.ema_counts + vq_ema.ema_epsilon)
+                / (n_tot + vq_ema.n_embeddings * vq_ema.ema_epsilon) * n_tot)
+    cb_err = float((state_e.model.codebook.detach() - state_e.ema_means / smoothed[:, None]).abs().max())
+    print(f"[8] train_vqvae EMA fp32/highest: 20 updates, kernel launches {launches_ema}; "
+          f"ema_counts.sum() {counts_sum:.3f} ({64 * TRAIN_BATCH} * (1 - 0.99^20) = {want_sum:.3f}); "
+          f"|codebook - means / smoothed| max {cb_err:.3g}; loss {history_e.loss_vals[0]:.6f} -> "
+          f"{history_e.loss_vals[-1]:.6f}")
+    check(launches_ema == {"mma": 0, "fma": 20}, f"expected 20 fma launches, got {launches_ema}")
+    check(np.isfinite(history_e.loss_vals).all(), "EMA training metrics not finite")
+    check(abs(counts_sum / want_sum - 1.0) <= 1e-4, "EMA counts do not follow the decay")
+    check(cb_err <= 1e-5, "the EMA codebook is not means / smoothed counts")
+    check(all(not bool(state_e.optimizer.state[state_e.model.codebook][m].any())
+              for m in ("mu", "nu", "nu_max")), "the EMA codebook has optimizer moments")
+
+    # -- phase 9: times of the train step and its parts (records, not checks) ----
+    def step_timer(vq_cfg, batch):
+        trainer = VQVAETrainer(vq_cfg, TrainConfig(batch_size=batch), x_train_var, device=DEVICE)
+        state = trainer.init_state()
+        x = torch.from_numpy(train.data[:batch]).to(dev)
+        return trainer, state, x, (lambda: trainer.step(state, x))
+
+    step_rows = []
+    for label, vq_cfg, batch in (("fp32/highest", VQVAEConfig(), 32),
+                                 ("fp32/highest", VQVAEConfig(), TRAIN_BATCH),
+                                 ("bf16/default", vq_bf16, TRAIN_BATCH)):
+        _tr, _st, _x, fn = step_timer(vq_cfg, batch)
+        # a step is thousands of times a launch: no spin; the events see the
+        # card's time or the host's pace of queueing the step, whichever is longer
+        ms = min(time_ms(fn, iters=30, warmup=10, queue_ahead=False) for _ in range(2))
+        host_ms = math.inf
+        for _ in range(2):  # the host alone: its clock around 30 steps, nothing awaited
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(30):
+                fn()
+            host_ms = min(host_ms, 1e3 * (time.perf_counter() - t0) / 30)
+        torch.cuda.synchronize()
+        row = {"train_step": label, "batch": batch, "ms": ms, "images_per_s": 1e3 * batch / ms,
+               "host_queue_ms": host_ms}
+        step_rows.append(row)
+        print(f"[9] {json.dumps(row)}")
+    trainer9, state9, x9, step9 = step_timer(VQVAEConfig(), TRAIN_BATCH)
+    step9()
+    opt_ms = min(time_ms(state9.optimizer.step, queue_ahead=False) for _ in range(2))
+    n_params = sum(p.numel() for p in state9.model.parameters())
+    print(f"[9] optimizer update alone ({len(list(state9.model.parameters()))} parameters, "
+          f"{n_params} elements, torch._foreach_*): {opt_ms:.5f} ms a call at the host's pace")
+    n, k, d = 64 * TRAIN_BATCH, 512, 64  # a train step's rows, = MAIN_SHAPE at batch 256
+    g = torch.randn(n, d, device=dev, generator=gen)
+    with torch.no_grad():
+        q9 = state9.model.quantize(state9.model.encode(x9))
+    spread = torch.randint(0, k, (n,), device=dev, generator=gen, dtype=torch.int32)
+    narrow = spread % 4
+    real = q9.indices.reshape(-1)
+    acc = torch.zeros(k, d, device=dev)
+    for name, idx in (("uniform over 512 codes", spread), ("4 codes", narrow),
+                      (f"a fresh model's assignments, {len(torch.unique(real))} codes", real)):
+        t_scatter = time_ms(lambda: acc.zero_().index_add_(0, idx, g))
+        print(f"[9] scatter-add backward alone, zero + index_add_ of ({n}, {d}) into ({k}, {d}), "
+              f"indices {name}: {t_scatter:.5f} ms")
+    ema_trainer, ema_state, _x, ema_step = step_timer(vq_ema, TRAIN_BATCH)
+    ema_step()
+    with torch.no_grad():
+        z9 = ema_state.model.encode(x9)
+        q_ema = ema_state.model.quantize(z9)
+    t_ema = time_ms(lambda: ema_trainer._ema_update(ema_state, z9, q_ema), queue_ahead=False)
+    print(f"[9] EMA update alone (sums by index_add_, decay, smoothing, codebook overwrite) at "
+          f"({n}, {k}, {d}): {t_ema:.5f} ms a call at the host's pace")
+    print(f"[9] card: {smi}; train-step times from CUDA events around 30 steps after 10 warm-up, "
+          f"no spin, the faster of two turns; host_queue_ms is the host clock around 30 steps "
+          f"with nothing awaited, the faster of two turns")
+    idx20 = np.stack([np.arange(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH) for i in range(20)])
+    trainer9.stage_dataset(train.data)
+    trainer9.steps_by_index(state9, idx20[:5])
+    profile_device("9", f"20 train steps at batch {TRAIN_BATCH}, fp32/highest, steps_by_index",
+                   lambda: trainer9.steps_by_index(state9, idx20), top=24)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, route, mode, launches):
@@ -396,12 +642,13 @@ def main() -> int:
                 "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
-    # each kernel at the main shape, in the mode of the path that launches it
+    # each kernel at the main shape, in the mode of the paths that launch it;
+    # its launches summed over those paths, each counted from zero
     kernels = [
         entry("nearest_code_mma", "vqvae_tpu_torch/csrc/nearest_code_mma.cu", "mma", "default",
-              launches_main["mma"]),
+              launches_main["mma"] + launches_bf16["mma"]),
         entry("nearest_code", "vqvae_tpu_torch/csrc/nearest_code.cu", "fma", "highest",
-              launches_rec["fma"]),
+              launches_rec["fma"] + launches_fp32["fma"] + launches_ema["fma"]),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path was never launched")
     print(json.dumps({"kernels": kernels}))

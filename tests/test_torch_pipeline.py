@@ -156,9 +156,12 @@ import vqvae_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(vqvae_tpu_torch.__path__, "vqvae_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "vqvae_tpu.", "flax")) or m == "vqvae_tpu")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "flax", "vqvae_tpu"))
 print(len(names), "modules")
-assert len(names) >= 15, names
+assert len(names) >= 24, names
+for name in ("train.optim", "train.vqvae_train", "train.metrics", "data.sampler", "utils.faults"):
+    assert "vqvae_tpu_torch." + name in names, name
 assert not bad, bad
 """
 

@@ -5,6 +5,6 @@ latents (B, h, w, D), codes (B, h, w). Entry points run on the CUDA card
 unless the caller passes ``device="cpu"``.
 """
 
-from vqvae_tpu_torch.config import VQVAEConfig
+from vqvae_tpu_torch.config import TrainConfig, VQVAEConfig
 
-__all__ = ["VQVAEConfig"]
+__all__ = ["TrainConfig", "VQVAEConfig"]

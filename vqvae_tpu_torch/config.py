@@ -2,15 +2,16 @@
 
 The port keeps its own copy of ``VQVAEConfig`` with the same fields and
 defaults, so hyperparameter dicts stored in checkpoints round-trip between
-the two packages unchanged. Defaults are the reference's (main.py:16-25).
-The prior, training and mesh configs come with the slices that use them.
+the two packages unchanged, and of ``TrainConfig``. Defaults are the
+reference's (main.py:16-30). The prior and mesh configs come with the slices
+that use them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 
 class _DictMixin:
@@ -56,11 +57,49 @@ class VQVAEConfig(_DictMixin):
     # code assignments may flip).
     quantizer_precision: str = "highest"
     # EMA codebook (van den Oord et al. 2017, appendix A.1): the loss is the
-    # beta-weighted commitment term only. The EMA update itself belongs to
-    # the training slice.
+    # beta-weighted commitment term only, and the trainer overwrites the
+    # codebook from running assignment counts and sums after every update
+    # (train/vqvae_train.py).
     ema_codebook: bool = False
     ema_decay: float = 0.99
     ema_epsilon: float = 1e-5
 
 
-__all__ = ["VQVAEConfig"]
+@dataclass(frozen=True)
+class TrainConfig(_DictMixin):
+    """Training-loop hyperparameters (reference defaults: main.py:16-30).
+
+    The same fields and defaults as the JAX package's ``TrainConfig``, so the
+    hyperparameter dicts stored in checkpoints round-trip.
+    """
+
+    batch_size: int = 32
+    n_updates: int = 5000
+    learning_rate: float = 3e-4     # Adam(amsgrad) -- main.py:55
+    # AMSGrad flavour. "torch" is the reference's optimizer: torch-1.1.0
+    # semantics (raw second-moment max, current-step bias correction),
+    # written by hand in train/optim.py. "optax" names the JAX package's
+    # comparison variant; the port does not have it and raises on it.
+    amsgrad_impl: str = "torch"
+    log_interval: int = 50
+    dataset: str = "CIFAR10"
+    seed: int = 0
+    save: bool = False
+    filename: Optional[str] = None
+    data_dir: str = "data"
+    results_dir: str = "results"
+    # Prior-loop extras (reference pixelcnn/gated_pixelcnn.py:27-42)
+    epochs: int = 100
+    gen_samples: bool = False
+    # Updates run per chunk. The per-step metrics stay on the device inside
+    # a chunk and cross to the host once at its end; 1 reads them back after
+    # every update, as the reference does. The update order is the same.
+    steps_per_dispatch: int = 1
+    # With chunks of more than one update: keep the whole training set on
+    # the device and gather each batch there from an uploaded index array,
+    # when the set fits under device_data_max_bytes.
+    device_data: bool = True
+    device_data_max_bytes: int = 2_000_000_000
+
+
+__all__ = ["VQVAEConfig", "TrainConfig"]

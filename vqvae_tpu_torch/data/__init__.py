@@ -1,1 +1,1 @@
-"""Datasets (numpy only)."""
+"""Datasets and the batch sampler (numpy only)."""

@@ -12,6 +12,11 @@ added after the convolution in the output's dtype (JAX conv.py:57-64).
 ``precision`` scopes cuDNN's fp32 arithmetic to the call: "highest" turns
 TF32 off (cuDNN allows it by default), "high" and "default" allow it. It
 changes nothing for bf16 inputs. Nothing is set process-wide.
+
+The scope of a call covers its forward convolution only. Autograd runs the
+backward convolutions when ``backward()`` is called, and cuDNN reads the
+switch then, so code that takes gradients holds ``conv_fp32_precision``
+around the forward and ``backward()`` itself (``VQVAETrainer`` does).
 """
 
 from __future__ import annotations

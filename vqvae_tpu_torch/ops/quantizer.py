@@ -173,7 +173,12 @@ def quantize(
 
     z_q_ste = z + (z_q - z).detach()
 
-    counts = torch.bincount(idx_flat, minlength=k).to(z.dtype)
+    # counted with a scatter-add of ones in z's dtype (the JAX
+    # .at[idx].add(1.0)): torch.bincount would read the largest index back
+    # to the host on a CUDA tensor, one synchronisation in every train step
+    counts = torch.zeros(k, dtype=z.dtype, device=z.device).index_add_(
+        0, idx_flat, torch.ones_like(idx_flat, dtype=z.dtype)
+    )
     e_mean = counts / idx_flat.shape[0]
     perplexity = torch.exp(-torch.sum(e_mean * torch.log(e_mean + 1e-10)))
 

@@ -1,1 +1,1 @@
-"""Training-side utilities; this slice has only the checkpoint reader."""
+"""Training: optimizer, metrics, checkpoints and the VQ-VAE trainer."""
