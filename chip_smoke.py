@@ -17,7 +17,10 @@ stops the script with a non-zero exit and no result line:
    N = 37): for each the route the dispatch picks and, where
    that is "mma", the "fma" route too. z_q must be bit-exactly
    codebook[idx], every index mismatch a near-tie (float64 scores within 1e-5 * (||z||^2 + max ||e||^2)), and a
-   duplicated codebook must give every index < K/2 (first minimum wins);
+   duplicated codebook must give every index < K/2 (first minimum wins); and
+   the NaN rule (ops/cuda_quantizer.py): with codebook row 300 NaN no route
+   picks code 300, a NaN row of z gets code 0, and the plain version takes
+   the first NaN;
 3. latent extraction, the main path: the trained bf16 checkpoint
    (artifacts/e2e_r5, "default" quantizer) over the 12,000 synthetic CIFAR
    images at batch 256, which must launch the "mma" kernel 47 times; its
@@ -49,7 +52,24 @@ stops the script with a non-zero exit and no result line:
    means / smoothed counts);
 9. times of a train step (batch 32 and 256 in fp32, 256 in bf16), of the
    optimizer update, the scatter-add backward and the EMA update alone, and a
-   ``torch.profiler`` breakdown of 20 steps at batch 256: records, not checks.
+   ``torch.profiler`` breakdown of 20 steps at batch 256: records, not checks;
+10. the trained prior (artifacts/e2e_r5, 15 layers, 512 codes, fp32 /
+   "highest") through the cached sampler: teacher-forced logits on 64 of the
+   grids of samples.npz against the port's full forward on the card, and on
+   4 against the port on the CPU (rtol 1e-3, atol 1e-4); 64 grids drawn from
+   one seed by the cached sampler and by ``GatedPixelCNN.generate`` must be
+   identical (at most one grid may part, and only where the top-two gap of
+   the perturbed logits at its first differing pixel is under 1e-4), and the
+   same seed twice the same grids; the TF32 error of a "default" config;
+11. ``sample`` through ``vqvae_tpu_torch.cli.main``: 100 samples with both
+   e2e_r5 checkpoints, checked for shapes, labels, code range, finite images;
+12. ``serve`` in-process: ``SamplingService`` (batch 64, background loop) and
+   ``SamplingHTTPServer`` on 127.0.0.1 with the e2e_r5 decoder; 4 client
+   threads send 3 requests each (n_samples 1, 10, 64, 100; decode, b64_u8),
+   every response and the service's counters are checked; a wave's ms
+   (CUDA events around ``run_wave``, at the host's pace), sampled images/s,
+   p50/p99 request latency, occupancy, and a ``torch.profiler`` breakdown of
+   one wave. Phases 10 to 12 launch neither nearest-code kernel.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -72,6 +92,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 R4 = os.path.join(ROOT, "artifacts", "e2e_r4", "vqvae_e2e_r4_step4999.npz")
 R5 = os.path.join(ROOT, "artifacts", "e2e_r5", "vqvae_e2e_r5_step4999.npz")
+PRIOR_R5 = os.path.join(ROOT, "artifacts", "e2e_r5", "latent_block_pixelcnn.npz")
+SAMPLES_R5 = os.path.join(ROOT, "artifacts", "e2e_r5", "samples.npz")
+PRIOR_SEED = 1234                     # the draws of phase 10
+REQUEST_SIZES = (1, 10, 64, 100)      # phase 12: one client thread each, 3 requests
 MODES = ("highest", "high", "default")
 # H100 SXM published peaks (dense): bytes/s of HBM3, FLOP/s by operand type.
 HBM_BYTES_PER_S = 3.35e12
@@ -192,9 +216,12 @@ def profile_device(tag: str, what: str, fn, top: int = 12) -> None:
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     # kernels and copies only: a profiler annotation mirrored onto the device
-    # (an optimizer's step) spans the gaps between its kernels
+    # (an optimizer's step, "Optimizer.step#TorchAmsgrad.step") spans the gaps
+    # between its kernels. Kernel names hold a "#" too, in their lambdas
+    # ("{lambda(float)#1}"), but also a parameter list.
     device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-                     and not getattr(e, "is_user_annotation", False) and "#" not in e.name]
+                     and not getattr(e, "is_user_annotation", False)
+                     and not ("#" in e.name and "(" not in e.name)]
     spans = sorted((e.time_range.start, e.time_range.end) for e in device_events)
     if not spans:
         print(f"[{tag}] the profiler saw no device activity: busy share not measured")
@@ -236,6 +263,208 @@ def relative_gradient_errors(grads: dict, grads_ref: dict) -> dict:
     gradient of the reference."""
     return {name: float((grads[name].cpu() - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
             for name, ref in grads_ref.items()}
+
+
+def first_difference_gaps(logits, grids_a, grids_b, seed: int) -> list:
+    """For each grid where two draws from one seed part: its first differing
+    pixel and the top-two gap of that pixel's perturbed logits (``logits``:
+    teacher-forced on ``grids_a``), with the uniforms replayed from the seed
+    (one (B, K) draw per pixel in raster order, as ``draw_codes`` takes them)."""
+    b, h, w, k = logits.shape
+    differ = (grids_a != grids_b).reshape(b, -1)
+    firsts = {int(g): int(differ[g].nonzero()[0]) for g in differ.any(1).nonzero().flatten()}
+    gen = torch.Generator(device=logits.device).manual_seed(seed)
+    out = []
+    for p in range(h * w):
+        u = torch.rand((b, k), generator=gen, device=logits.device, dtype=torch.float32)
+        for g, first in firsts.items():
+            if first == p:
+                top = (logits[g, p // w, p % w] - u[g].log().neg().log()).topk(2).values
+                out.append({"grid": g, "pixel": [p // w, p % w], "gap": float(top[0] - top[1])})
+    return out
+
+
+def sampling_phases(dev, smi: str) -> dict:
+    """Phases 10 to 12: the prior, ``sample`` and ``serve`` at full width on
+    the e2e_r5 checkpoints. Returns the numbers of the record."""
+    import base64
+    import tempfile
+    import threading
+    import urllib.request
+
+    from vqvae_tpu_torch import cli
+    from vqvae_tpu_torch.models.pixelcnn import GatedPixelCNN
+    from vqvae_tpu_torch.models.pixelcnn_sampler import CachedPixelCNNSampler
+    from vqvae_tpu_torch.ops import cuda_quantizer
+    from vqvae_tpu_torch.pipelines.sample import decode_code_grids
+    from vqvae_tpu_torch.pipelines.serve import SamplingHTTPServer, SamplingService
+    from vqvae_tpu_torch.pipelines.viz import load_model, load_prior
+
+    rows = {}
+    cuda_quantizer.reset_launch_counts()
+
+    # -- phase 10: the prior and the cached sampler ---------------------------
+    prior, _m, hp = load_prior(PRIOR_R5, device=DEVICE)
+    cfg = prior.config
+    check(hp["n_layers"] == 15 and hp["dim"] == 64 and hp["input_dim"] == 512
+          and cfg.conv_precision == "highest", f"unexpected e2e_r5 prior hyperparameters {hp}")
+    samples = np.load(SAMPLES_R5)
+    grids = torch.from_numpy(samples["codes"][:64]).to(dev)
+    labels = torch.from_numpy(samples["labels"][:64]).to(dev)
+    side = cfg.img_dim
+    sampler = CachedPixelCNNSampler(prior)
+    with torch.inference_mode():
+        tf = sampler.generate(labels, None, (side, side), 64, force_grid=grids)
+        full = prior(grids, labels)
+    torch.cuda.synchronize()
+    err = float((tf - full).abs().max())
+    rel = float(((tf - full).abs() / full.abs().clamp_min(1e-4)).max())
+    close = bool(torch.allclose(tf, full, rtol=1e-3, atol=1e-4))
+    rows["teacher_forced_max_abs_err"] = err
+    print(f"[10] e2e_r5 prior ({sum(p.numel() for p in prior.parameters())} parameters): "
+          f"teacher-forced cached logits vs the full forward on 64 grids: max abs {err:.3g} "
+          f"(logits in [{float(full.min()):.1f}, {float(full.max()):.1f}]), largest relative "
+          f"{rel:.3g}, allclose(rtol 1e-3, atol 1e-4) {close}")
+    check(close, "cached teacher-forced logits disagree with the full forward on the card")
+    prior_cpu, _m, _hp = load_prior(PRIOR_R5, device="cpu")
+    with torch.inference_mode():
+        cpu_full = prior_cpu(grids[:4].cpu(), labels[:4].cpu())
+    cpu_err = float((tf[:4].cpu() - cpu_full).abs().max())
+    cpu_close = bool(torch.allclose(tf[:4].cpu(), cpu_full, rtol=1e-3, atol=1e-4))
+    rows["card_vs_cpu_max_abs_err"] = cpu_err
+    print(f"[10] the card's cached logits vs the port's full forward on the CPU, 4 grids: max abs "
+          f"{cpu_err:.3g}, allclose {cpu_close} (highest: no TF32 on the card)")
+    check(cpu_close, "the card's cached logits drift from the CPU (TF32 on?)")
+    # for the record: the same weights with TF32 allowed in the sampler's matmuls and convs
+    prior_tf32 = GatedPixelCNN(cfg.replace(conv_precision="default")).to(dev)
+    prior_tf32.load_state_dict(prior.state_dict())
+    with torch.inference_mode():
+        tf_tf32 = CachedPixelCNNSampler(prior_tf32).generate(labels, None, (side, side), 64,
+                                                             force_grid=grids)
+    print(f"[10]   conv_precision='default' (TF32 allowed): max abs {float((tf_tf32 - full).abs().max()):.3g} "
+          f"against the fp32 full forward")
+
+    sample_labels = torch.arange(64, device=dev) % 10
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        cached = sampler.generate(sample_labels, torch.Generator(device=dev).manual_seed(PRIOR_SEED),
+                                  (side, side), 64)
+        torch.cuda.synchronize()
+        t_cached = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        oracle = prior.generate(sample_labels, torch.Generator(device=dev).manual_seed(PRIOR_SEED),
+                                (side, side), 64)
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t0
+        again = sampler.generate(sample_labels, torch.Generator(device=dev).manual_seed(PRIOR_SEED),
+                                 (side, side), 64)
+        tf_cached = sampler.generate(sample_labels, None, (side, side), 64, force_grid=cached)
+    differ = int((cached != oracle).reshape(64, -1).any(1).sum())
+    gaps = first_difference_gaps(tf_cached, cached, oracle, PRIOR_SEED)
+    rows.update(differing_grids=differ, first_difference_gaps=gaps)
+    print(f"[10] 64 grids from seed {PRIOR_SEED}: cached sampler {t_cached:.3f} s, full forward a pixel "
+          f"(GatedPixelCNN.generate) {t_full:.3f} s (host clock, first calls); grids that differ "
+          f"{differ}, at their first differing pixel {gaps}; the same seed again identical "
+          f"{torch.equal(cached, again)}; {len(torch.unique(cached))} distinct codes")
+    check(differ == 0 or (differ == 1 and gaps[0]["gap"] < 1e-4),
+          "the cached and the full-forward samplers draw different grids")
+    check(torch.equal(cached, again), "one seed drew two different sets of grids")
+    check(cached.dtype == torch.int32 and int(cached.min()) >= 0 and int(cached.max()) < cfg.input_dim,
+          "drawn codes out of range")
+
+    # -- phase 11: sample through the CLI --------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "s.npz")
+        t0 = time.perf_counter()
+        rc = cli.main(["sample", "--vqvae-checkpoint", R5, "--prior-checkpoint", PRIOR_R5,
+                       "--n_samples", "100", "--out", out])
+        t_cli = time.perf_counter() - t0
+        s = dict(np.load(out))
+    distinct = len(np.unique(s["codes"]))
+    rows["sample_cli_s"] = t_cli
+    print(f"[11] cli sample --n_samples 100: rc {rc}, {t_cli:.3f} s (host clock, loads included); "
+          f"images {s['images'].shape}, codes {s['codes'].shape}, {distinct} distinct codes (the JAX "
+          f"run drew 284, artifacts/e2e_r5/README.md; a record, not a check)")
+    check(rc == 0 and s["images"].shape == (100, 32, 32, 3) and s["codes"].shape == (100, 8, 8),
+          "sample wrote the wrong shapes")
+    check(np.array_equal(s["labels"], np.arange(100) % 10), "sample's labels do not cycle 0..9")
+    check(s["codes"].min() >= 0 and s["codes"].max() < 512 and np.isfinite(s["images"]).all(),
+          "sample's codes out of range or images not finite")
+
+    # -- phase 12: serve in-process ------------------------------------------
+    vq_model, _m, _hp = load_model(R5, device=DEVICE)
+    service = SamplingService(cfg, prior, batch_size=64, seed=0, device=DEVICE)
+    service.start()
+    server = SamplingHTTPServer(service, lambda c: decode_code_grids(vq_model, c), port=0)
+    server.start_background()
+    url = "http://%s:%d/sample" % server.address
+    latencies, errors, lock = [], [], threading.Lock()
+
+    def client(n):
+        for _ in range(3):
+            body = json.dumps({"label": n % 10, "n_samples": n, "decode": True}).encode()
+            t = time.perf_counter()
+            try:
+                with urllib.request.urlopen(urllib.request.Request(url, data=body), timeout=300) as r:
+                    resp = json.loads(r.read())
+                lat = time.perf_counter() - t
+                codes = np.asarray(resp["codes"])
+                u8 = np.frombuffer(base64.b64decode(resp["images_b64"]), np.uint8)
+                good = (codes.shape == (n, side, side) and codes.min() >= 0 and codes.max() < 512
+                        and resp["images_shape"] == [n, 32, 32, 3] and u8.size == n * 32 * 32 * 3)
+                with lock:
+                    latencies.append(lat)
+                    if not good:
+                        errors.append(f"bad response for n={n}")
+            except Exception as e:  # every failure is reported below
+                with lock:
+                    errors.append(f"n={n}: {e!r}")
+
+    threads = [threading.Thread(target=client, args=(n,)) for n in REQUEST_SIZES]
+    try:
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        service.stop()
+    check(not any(t.is_alive() for t in threads), "a client thread never finished")
+    check(not errors, f"serve: {errors}")
+    stats = dict(service.stats)
+    want_slots = 3 * sum(REQUEST_SIZES)
+    occupancy = stats["slots_used"] / (stats["waves"] * 64)
+    lat = np.sort(np.asarray(latencies))
+    rows.update(serve_images_per_s=stats["slots_used"] / wall, p50_s=float(np.percentile(lat, 50)),
+                p99_s=float(np.percentile(lat, 99)), occupancy=occupancy, waves=stats["waves"])
+    print(f"[12] 4 clients x 3 requests (n_samples {REQUEST_SIZES}, decode, b64_u8): {len(lat)} responses "
+          f"in {wall:.3f} s; stats {stats}; sampled images/s {stats['slots_used'] / wall:.1f}; latency "
+          f"p50 {rows['p50_s']:.3f} s, p99 {rows['p99_s']:.3f} s (max {lat[-1]:.3f}); occupancy "
+          f"{occupancy:.3f}")
+    check(len(lat) == 12 and stats["slots_used"] == want_slots
+          and -(-want_slots // 64) <= stats["waves"] <= 12 * 2,
+          f"the service's counters do not add up: {stats}, {want_slots} slots asked for")
+
+    # a wave at the host's pace: CUDA events around run_wave (64 slots), no spin
+    wave_ms = []
+    for r in range(6):
+        service.submit(r % 10, 64)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        service.run_wave()
+        end.record()
+        end.synchronize()
+        wave_ms.append(start.elapsed_time(end))
+    rows["wave_ms"] = float(np.median(wave_ms[1:]))
+    print(f"[12] a wave of 64 grids (run_wave): {', '.join(f'{t:.3f}' for t in wave_ms)} ms, median of "
+          f"the last 5 {rows['wave_ms']:.3f} ms = {64e3 / rows['wave_ms']:.1f} grids/s; card: {smi}")
+    service.submit(0, 64)
+    profile_device("12", "one wave of 64 grids (run_wave)", service.run_wave, top=16)
+    check(cuda_quantizer.launches == 0, "the sampling path launched a nearest-code kernel")
+    print(f"[12] nearest-code kernel launches in phases 10-12: {cuda_quantizer.launches} (decode is a gather)")
+    return rows
 
 
 def main() -> int:
@@ -320,6 +549,30 @@ def main() -> int:
         print(f"[2] N=1000 K=300 D=64 {mode:8s} fma z at {z_off.data_ptr() % 16} bytes past a "
               f"16-byte boundary: same indices={same}")
         check(same, "the scalar-load path disagrees with the 16-byte-load path")
+
+    # NaN scores (the rule in ops/cuda_quantizer.py): codebook row 300 NaN, z row 7 NaN
+    n, k, d = MAIN_SHAPE
+    z = torch.randn(n, d, device=dev, generator=gen)
+    cb = torch.randn(k, d, device=dev, generator=gen)
+    z[7], cb[300] = float("nan"), float("nan")
+    keep, finite = torch.arange(k, device=dev) != 300, torch.arange(n, device=dev) != 7
+    for mode in MODES:
+        _, idx_plain = nearest_code_torch(z, cb, mode)
+        plain_rule = bool((idx_plain[finite] == 300).all()) and int(idx_plain[7]) == 0
+        _, rest = nearest_code_torch(z, cb[keep], mode)
+        want = rest + (rest >= 300).int()  # the nearest code other than 300
+        for route in dict.fromkeys((cuda_quantizer.kernel_route(mode, d), "fma")):
+            idx = cuda_quantizer.nearest_code_indices(z, cb, mode, route)
+            mism, near, _gap = compare_assignments(z[finite], cb.nan_to_num(0.0), idx[finite],
+                                                   want[finite], mode)
+            picked_nan = int((idx == 300).sum())
+            print(f"[2] NaN codebook row 300, NaN z row 7, N={n} {mode:8s} {route}: rows on code 300 "
+                  f"{picked_nan}, z row 7 -> code {int(idx[7])}, vs nearest other code mismatches={mism} "
+                  f"near_ties={near}; plain version: first NaN (300 for finite rows, 0 for row 7) "
+                  f"{plain_rule}")
+            check(picked_nan == 0 and int(idx[7]) == 0 and mism == near,
+                  f"the {route} kernel breaks the NaN rule in mode {mode}")
+            check(plain_rule, "the plain version does not take the first NaN")
 
     # -- phase 3: extraction, the main path -----------------------------------
     model, _metrics, hp = load_model(R5, device=DEVICE)
@@ -632,6 +885,9 @@ def main() -> int:
     trainer9.steps_by_index(state9, idx20[:5])
     profile_device("9", f"20 train steps at batch {TRAIN_BATCH}, fp32/highest, steps_by_index",
                    lambda: trainer9.steps_by_index(state9, idx20), top=24)
+    t_prior = time.perf_counter()
+    prior_rows = sampling_phases(dev, smi)
+    print(f"[12] phases 10-12 took {time.perf_counter() - t_prior:.1f} s; {json.dumps(prior_rows)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, route, mode, launches):

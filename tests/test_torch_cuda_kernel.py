@@ -62,6 +62,52 @@ def test_nearest_code_on_cpu_takes_the_plain_version():
     assert cuda_quantizer.launches == before
 
 
+def _nan_case(dev):
+    """z (1000, 64) with row 7 NaN; a codebook (512, 64) whose row 300 is NaN."""
+    z, cb = _inputs(1000, 512, 64, seed=9)
+    z[7] = float("nan")
+    cb[300] = float("nan")
+    return z.to(dev), cb.to(dev)
+
+
+@pytest.mark.parametrize("precision", MODES)
+def test_plain_version_takes_the_first_nan(precision):
+    """The plain version (the CPU path) follows torch.argmin: the first NaN
+    score wins, so the NaN codebook row takes every finite row and the NaN
+    row of z gets code 0."""
+    z, cb = _nan_case("cpu")
+    _zq, idx = nearest_code(z, cb, precision)
+    want = torch.full((1000,), 300, dtype=torch.int32)
+    want[7] = 0
+    assert torch.equal(idx, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", MODES)
+def test_kernels_skip_nan_scores_on_card(precision):
+    """The kernels' rule (ops/cuda_quantizer.py): a NaN score is skipped and
+    the rest of its tile kept, so no row takes code 300 and every finite row
+    gets the nearest of the other codes (near-tie rule); the NaN row of z
+    gets code 0. The plain version on the card follows torch.argmin."""
+    dev = _card()
+    z, cb = _nan_case(dev)
+    keep = torch.arange(512, device=dev) != 300
+    _, idx_rest = nearest_code_torch(z, cb[keep], precision)
+    want = idx_rest + (idx_rest >= 300).int()  # back to the full codebook's numbering
+    finite = torch.arange(1000, device=dev) != 7
+    for route in dict.fromkeys((cuda_quantizer.kernel_route(precision, 64), "fma")):
+        idx = cuda_quantizer.nearest_code_indices(z, cb, precision, route)
+        torch.cuda.synchronize()
+        assert int(idx[7]) == 0 and not bool((idx == 300).any()), route
+        mism, near, gap = compare_assignments(z[finite], cb.nan_to_num(0.0), idx[finite],
+                                              want[finite], precision)
+        assert mism == near, (route, mism, near, gap)
+    _, idx_plain = nearest_code_torch(z, cb, precision)
+    want_plain = torch.full((1000,), 300, dtype=torch.int32, device=dev)
+    want_plain[7] = 0
+    assert torch.equal(idx_plain, want_plain)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("route", ["fma", "mma"])
 @pytest.mark.parametrize("precision", MODES)

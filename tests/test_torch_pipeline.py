@@ -139,6 +139,65 @@ def test_cli_extract_latents_cpu_end_to_end(tmp_path):
     np.testing.assert_array_equal(codes[:64], j_codes.reshape(64, -1))
 
 
+_BARE = dict(n_hiddens=16, n_residual_hiddens=8, embedding_dim=16, n_embeddings=64)
+_BARE_FLAGS = ["--n_hiddens", "16", "--n_residual_hiddens", "8", "--embedding_dim", "16",
+               "--n_embeddings", "64"]
+
+
+def _run_port_cli(args, cwd):
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    return subprocess.run([sys.executable, "-m", "vqvae_tpu_torch.cli", *args], capture_output=True,
+                          text=True, timeout=300, cwd=str(cwd), env=env)
+
+
+def test_extract_latents_takes_model_flags_for_a_file_without_hyperparameters(tmp_path):
+    """A checkpoint saved with hyperparameters=None: the port's extract-latents
+    with the JAX command's model flags gives the JAX command's codes (up to
+    near-ties); without the flags it fails and names them."""
+    import argparse
+
+    from vqvae_tpu.cli import cmd_extract_latents as jax_extract_cmd
+
+    cfg = JaxConfig(**_BARE)
+    trainer = VQVAETrainer(cfg, JaxTrainConfig(seed=5))
+    ckpt = tmp_path / "bare.npz"
+    save_checkpoint(str(ckpt), trainer.init_state(), 0, hyperparameters=None)
+    data_dir = tmp_path / "data"
+    jax_out, port_out = tmp_path / "jax.npy", tmp_path / "port.npy"
+    jax_args = argparse.Namespace(
+        checkpoint=str(ckpt), out=str(jax_out), extract_batch=1000, dataset="CIFAR10",
+        data_dir=str(data_dir), n_hiddens=16, n_residual_hiddens=8, n_residual_layers=2,
+        embedding_dim=16, n_embeddings=64, beta=0.25, share_residual_weights=False)
+    assert jax_extract_cmd(jax_args) == 0
+
+    proc = _run_port_cli(["extract-latents", "--checkpoint", str(ckpt), "--out", str(port_out),
+                          "--extract_batch", "1000", "--data_dir", str(data_dir), "--device", "cpu",
+                          *_BARE_FLAGS], tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    codes, j_codes = np.load(port_out), np.load(jax_out)
+    assert codes.shape == j_codes.shape == (12000, 64)
+    model, _m, hp = load_model(str(ckpt), device="cpu", fallback_cfg=VQVAEConfig(**_BARE))
+    assert hp == {}
+    data = load_dataset("CIFAR10", str(data_dir))
+    images = np.concatenate([data[0].data, data[1].data])
+    with torch.no_grad():
+        z_e = torch.cat([model.encode(torch.from_numpy(images[s:s + 2000]))
+                         for s in range(0, len(images), 2000)]).reshape(-1, 16)
+    mism, near, gap = compare_assignments(z_e, model.codebook.detach(),
+                                          torch.from_numpy(codes.reshape(-1)),
+                                          torch.from_numpy(j_codes.reshape(-1)), "highest")
+    assert mism == near, f"{mism - near} non-near-tie mismatches (gap {gap})"
+
+    proc = _run_port_cli(["extract-latents", "--checkpoint", str(ckpt), "--out",
+                          str(tmp_path / "none.npy"), "--data_dir", str(data_dir), "--device", "cpu"],
+                         tmp_path)
+    assert proc.returncode != 0 and not (tmp_path / "none.npy").exists()
+    assert ("stores no hyperparameters: give the model flags it was trained with (--n_hiddens, "
+            "--n_residual_hiddens, --n_residual_layers, --embedding_dim, --n_embeddings)") in proc.stderr
+    with pytest.raises(ValueError, match="stores no hyperparameters"):
+        load_model(str(ckpt), device="cpu")
+
+
 def test_entry_points_refuse_missing_card(monkeypatch, tmp_path):
     """device="cuda" (the default) raises without a card instead of falling
     back to the CPU."""
@@ -160,7 +219,8 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "flax", "vqvae_tpu"))
 print(len(names), "modules")
 assert len(names) >= 24, names
-for name in ("train.optim", "train.vqvae_train", "train.metrics", "data.sampler", "utils.faults"):
+for name in ("train.optim", "train.vqvae_train", "train.metrics", "data.sampler", "utils.faults",
+             "models.pixelcnn", "models.pixelcnn_sampler", "pipelines.sample", "pipelines.serve"):
     assert "vqvae_tpu_torch." + name in names, name
 assert not bad, bad
 """

@@ -2,12 +2,17 @@
 
     python -m vqvae_tpu_torch.cli train-vqvae [--batch_size 32 --n_updates 5000 ...] [--device cpu]
     python -m vqvae_tpu_torch.cli extract-latents --checkpoint results/...npz [--device cpu]
+    python -m vqvae_tpu_torch.cli sample --vqvae-checkpoint ... --prior-checkpoint ... [--device cpu]
+    python -m vqvae_tpu_torch.cli serve --prior-checkpoint ... [--vqvae-checkpoint ...] [--device cpu]
 
-Flag names and defaults of ``train-vqvae`` are the JAX package's (and the
-reference's, main.py:16-30), without the mesh flags. ``extract-latents``
-rebuilds the model from the checkpoint's stored hyperparameters. Both run on
-the CUDA card unless ``--device cpu`` is given. The other subcommands come
-with later slices.
+Flag names and defaults are the JAX package's (and the reference's,
+main.py:16-30, gated_pixelcnn.py:27-42), without the mesh flags.
+``extract-latents``, ``sample`` and ``serve`` rebuild each model from its
+checkpoint's stored hyperparameters; for a file that stores none they take
+the model flags, which must then be given (the command fails and names
+them otherwise). Every command runs on the CUDA card unless ``--device cpu``
+is given. ``train-prior``, ``profile``, ``benchmark`` and ``viz`` come with
+later slices.
 """
 
 from __future__ import annotations
@@ -18,14 +23,25 @@ import sys
 import numpy as np
 
 
+class _ModelFlag(argparse.Action):
+    """Stores the value and records that the flag was given, so that a
+    checkpoint without stored hyperparameters is refused rather than read
+    with default widths nobody asked for."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        setattr(namespace, self.dest, values)
+        namespace.given_model_flags = getattr(namespace, "given_model_flags", frozenset()) | {self.dest}
+
+
 def _add_vqvae_flags(p: argparse.ArgumentParser) -> None:
+    p.set_defaults(given_model_flags=frozenset())
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--n_updates", type=int, default=5000)
-    p.add_argument("--n_hiddens", type=int, default=128)
-    p.add_argument("--n_residual_hiddens", type=int, default=32)
-    p.add_argument("--n_residual_layers", type=int, default=2)
-    p.add_argument("--embedding_dim", type=int, default=64)
-    p.add_argument("--n_embeddings", type=int, default=512)
+    p.add_argument("--n_hiddens", type=int, default=128, action=_ModelFlag)
+    p.add_argument("--n_residual_hiddens", type=int, default=32, action=_ModelFlag)
+    p.add_argument("--n_residual_layers", type=int, default=2, action=_ModelFlag)
+    p.add_argument("--embedding_dim", type=int, default=64, action=_ModelFlag)
+    p.add_argument("--n_embeddings", type=int, default=512, action=_ModelFlag)
     p.add_argument("--beta", type=float, default=0.25)
     p.add_argument("--learning_rate", type=float, default=3e-4)
     p.add_argument("--log_interval", type=int, default=50)
@@ -61,6 +77,52 @@ def _add_vqvae_flags(p: argparse.ArgumentParser) -> None:
                    choices=["auto", "pallas", "jnp"],
                    help="stored in the checkpoint for the JAX package; the port "
                         "dispatches on the tensor's device only")
+
+
+def _add_prior_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--img_dim", type=int, default=8, action=_ModelFlag)
+    p.add_argument("--n_layers", type=int, default=15, action=_ModelFlag)
+
+
+def _given(flags, args) -> bool:
+    return any(f.lstrip("-") in args.given_model_flags for f in flags)
+
+
+def _vqvae_flags_cfg(args):
+    """The VQ-VAE config the model flags give: the fallback for a checkpoint
+    that stores no hyperparameters (``load_model`` prefers stored ones).
+    None when no model flag was given, so that such a file is refused."""
+    from vqvae_tpu_torch.config import VQVAEConfig
+    from vqvae_tpu_torch.pipelines.viz import VQVAE_FLAGS
+
+    if not _given(VQVAE_FLAGS, args):
+        return None
+    return VQVAEConfig(
+        n_hiddens=args.n_hiddens,
+        n_residual_hiddens=args.n_residual_hiddens,
+        n_residual_layers=args.n_residual_layers,
+        embedding_dim=args.embedding_dim,
+        n_embeddings=args.n_embeddings,
+        beta=args.beta,
+        share_residual_weights=args.share_residual_weights,
+        compute_dtype=args.compute_dtype,
+        conv_precision=args.conv_precision,
+        quantizer_precision=args.quantizer_precision,
+        ema_codebook=args.ema_codebook,
+        ema_decay=args.ema_decay,
+    )
+
+
+def _prior_flags_cfg(args):
+    """The prior config the model flags give (dim = img_dim ** 2, as the
+    reference sets it), as ``_vqvae_flags_cfg``."""
+    from vqvae_tpu_torch.config import PixelCNNConfig
+    from vqvae_tpu_torch.pipelines.viz import PRIOR_FLAGS
+
+    if not _given(PRIOR_FLAGS, args):
+        return None
+    return PixelCNNConfig(input_dim=args.n_embeddings, dim=args.img_dim ** 2,
+                          n_layers=args.n_layers, img_dim=args.img_dim)
 
 
 def cmd_train_vqvae(args) -> int:
@@ -108,12 +170,74 @@ def cmd_extract_latents(args) -> int:
     from vqvae_tpu_torch.pipelines.extract import extract_latents
     from vqvae_tpu_torch.pipelines.viz import load_model
 
-    model, _metrics, _hp = load_model(args.checkpoint, device=args.device)
+    model, _metrics, _hp = load_model(args.checkpoint, device=args.device,
+                                      fallback_cfg=_vqvae_flags_cfg(args))
     train_ds, val_ds, _var, _info = load_dataset(args.dataset, args.data_dir)
     out = args.out or f"{args.data_dir}/latent_e_indices.npy"
     data = np.concatenate([train_ds.data, val_ds.data])
     codes = extract_latents(model, data, batch_size=args.extract_batch, out_path=out)
     print(f"Saved {codes.shape} code grids from {args.checkpoint} to {out}")
+    return 0
+
+
+def cmd_sample(args) -> int:
+    import os
+
+    import torch
+
+    from vqvae_tpu_torch.pipelines.sample import sample_images
+    from vqvae_tpu_torch.pipelines.viz import load_model, load_prior
+
+    vq_model, _m, _hp = load_model(args.vqvae_checkpoint, device=args.device,
+                                   fallback_cfg=_vqvae_flags_cfg(args))
+    prior, _m, _hp = load_prior(args.prior_checkpoint, device=args.device,
+                                fallback_cfg=_prior_flags_cfg(args))
+    # class-conditional labels cycling 0..9 (the reference draws 10 of each,
+    # gated_pixelcnn.py:143-149), for any n_samples
+    labels = (np.arange(args.n_samples) % 10).astype(np.int32)
+    generator = torch.Generator(device=prior.embedding.device).manual_seed(args.seed)
+    images, codes = sample_images(vq_model, prior, labels, generator)
+    out = args.out or "samples/samples.npz"
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    np.savez(out, images=images, codes=codes, labels=labels)
+    print(f"Saved {images.shape[0]} samples to {out}")
+    if args.png:
+        from vqvae_tpu_torch.pipelines.viz import save_image_grid
+
+        # with 10 columns, class c fills column c
+        n_cols = 10 if args.n_samples % 10 == 0 else 8
+        print(f"Wrote {save_image_grid(images, args.png, n_cols=n_cols)}")
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Continuous-batching sampling service behind an HTTP JSON API."""
+    from vqvae_tpu_torch.pipelines.sample import decode_code_grids
+    from vqvae_tpu_torch.pipelines.serve import SamplingHTTPServer, SamplingService
+    from vqvae_tpu_torch.pipelines.viz import load_model, load_prior
+
+    prior, _m, _hp = load_prior(args.prior_checkpoint, device=args.device,
+                                fallback_cfg=_prior_flags_cfg(args))
+    service = SamplingService(prior.config, prior, batch_size=args.serve_batch, seed=args.seed,
+                              device=args.device)
+    decode_fn = None
+    if args.vqvae_checkpoint:
+        vq_model, _m, _hp = load_model(
+            args.vqvae_checkpoint, device=args.device,
+            fallback_cfg=_vqvae_flags_cfg(args))
+        decode_fn = lambda codes: decode_code_grids(vq_model, codes)  # noqa: E731
+
+    service.start()
+    server = SamplingHTTPServer(service, decode_fn, host=args.host, port=args.port)
+    print(f"serving on http://{server.address[0]}:{server.address[1]} "
+          f"(POST /sample, GET /healthz)", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.shutdown()
+        service.stop()
     return 0
 
 
@@ -127,13 +251,37 @@ def build_parser() -> argparse.ArgumentParser:
     tv.set_defaults(fn=cmd_train_vqvae)
 
     ex = sub.add_parser("extract-latents", help="dataset -> code indices .npy")
+    _add_vqvae_flags(ex)
     ex.add_argument("--checkpoint", type=str, required=True)
     ex.add_argument("--out", type=str, default=None)
     ex.add_argument("--extract_batch", type=int, default=256)
-    ex.add_argument("--dataset", type=str, default="CIFAR10")
-    ex.add_argument("--data_dir", type=str, default="data")
     ex.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     ex.set_defaults(fn=cmd_extract_latents)
+
+    sm = sub.add_parser("sample", help="AR sample codes -> decode images")
+    _add_vqvae_flags(sm)
+    _add_prior_flags(sm)
+    sm.add_argument("--vqvae-checkpoint", type=str, required=True)
+    sm.add_argument("--prior-checkpoint", type=str, required=True)
+    sm.add_argument("--n_samples", type=int, default=100)
+    sm.add_argument("--out", type=str, default=None)
+    sm.add_argument("--png", type=str, default=None,
+                    help="also render the samples as one PNG grid (needs matplotlib)")
+    sm.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    sm.set_defaults(fn=cmd_sample)
+
+    sv = sub.add_parser("serve", help="HTTP sampling service (continuous batching)")
+    _add_vqvae_flags(sv)
+    _add_prior_flags(sv)
+    sv.add_argument("--prior-checkpoint", type=str, required=True)
+    sv.add_argument("--vqvae-checkpoint", type=str, default=None,
+                    help="attach a decoder so /sample can return images")
+    sv.add_argument("--host", type=str, default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8787)
+    sv.add_argument("--serve_batch", type=int, default=64,
+                    help="device slots per lockstep wave")
+    sv.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    sv.set_defaults(fn=cmd_serve)
     return p
 
 

@@ -3,8 +3,8 @@
 The port keeps its own copy of ``VQVAEConfig`` with the same fields and
 defaults, so hyperparameter dicts stored in checkpoints round-trip between
 the two packages unchanged, and of ``TrainConfig``. Defaults are the
-reference's (main.py:16-30). The prior and mesh configs come with the slices
-that use them.
+reference's (main.py:16-30), and of ``PixelCNNConfig``. The mesh config comes
+with the slice that uses it.
 """
 
 from __future__ import annotations
@@ -66,6 +66,23 @@ class VQVAEConfig(_DictMixin):
 
 
 @dataclass(frozen=True)
+class PixelCNNConfig(_DictMixin):
+    """GatedPixelCNN prior hyperparameters (reference pixelcnn/gated_pixelcnn.py:27-42,69)."""
+
+    input_dim: int = 512            # number of discrete codes (n_embeddings)
+    dim: int = 64                   # the reference sets dim = img_dim**2 = 64
+    n_layers: int = 15
+    n_classes: int = 10
+    img_dim: int = 8                # latent grid side
+    # Conv-stack compute dtype of the full forward ("float32" or "bfloat16");
+    # params stay fp32 and logits come out fp32. The cached sampler always
+    # computes in fp32.
+    compute_dtype: str = "float32"
+    # fp32 conv and matmul arithmetic, as VQVAEConfig.conv_precision.
+    conv_precision: str = "highest"
+
+
+@dataclass(frozen=True)
 class TrainConfig(_DictMixin):
     """Training-loop hyperparameters (reference defaults: main.py:16-30).
 
@@ -102,4 +119,4 @@ class TrainConfig(_DictMixin):
     device_data_max_bytes: int = 2_000_000_000
 
 
-__all__ = ["VQVAEConfig", "TrainConfig"]
+__all__ = ["PixelCNNConfig", "VQVAEConfig", "TrainConfig"]

@@ -9,9 +9,16 @@ weights: conv (C_out, C_in, kh, kw), transposed conv (C_in, C_out, kh, kw).
 As in the JAX ops, weights are cast to the input's dtype and the bias is
 added after the convolution in the output's dtype (JAX conv.py:57-64).
 
-``precision`` scopes cuDNN's fp32 arithmetic to the call: "highest" turns
-TF32 off (cuDNN allows it by default), "high" and "default" allow it. It
-changes nothing for bf16 inputs. Nothing is set process-wide.
+``precision`` scopes the fp32 arithmetic of cuDNN's convolutions and of
+cuBLAS's matmuls to the call: "highest" turns TF32 off (cuDNN allows it by
+default), "high" and "default" allow it. It changes nothing for bf16 inputs.
+
+Both switches are process-wide in torch, so ``conv_fp32_precision`` holds a
+process-wide re-entrant lock from its entry to its exit: a thread that opens
+a scope waits until no other thread is inside one, and reads back its own
+values inside its scope (a sampler thread under the prior's precision, a
+decode thread under the VQ-VAE's). Re-entry from the same thread is allowed
+and restores the outer values on exit.
 
 The scope of a call covers its forward convolution only. Autograd runs the
 backward convolutions when ``backward()`` is called, and cuDNN reads the
@@ -22,24 +29,32 @@ around the forward and ``backward()`` itself (``VQVAETrainer`` does).
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 
+# one lock for the process, as the switches it guards are the process's
+_PRECISION_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def conv_fp32_precision(precision: Optional[str]):
-    """Scope cuDNN's TF32 use for fp32 convolutions to a ``with`` block."""
-    # torch's per-operator precision API (mixing it with the legacy
-    # cudnn.allow_tf32 flag raises on a later read, so only this one is used)
-    flags = torch.backends.cudnn.conv
-    prev = flags.fp32_precision
-    flags.fp32_precision = "ieee" if precision == "highest" else "tf32"
-    try:
-        yield
-    finally:
-        flags.fp32_precision = prev
+    """Scope TF32 use of fp32 convolutions (cuDNN) and matmuls (cuBLAS) to a
+    ``with`` block, serialized across threads."""
+    # torch's per-operator precision API only: mixing it with the legacy
+    # allow_tf32 flags raises on a later read
+    value = "ieee" if precision == "highest" else "tf32"
+    conv, matmul = torch.backends.cudnn.conv, torch.backends.cuda.matmul
+    with _PRECISION_LOCK:
+        prev = conv.fp32_precision, matmul.fp32_precision
+        conv.fp32_precision = matmul.fp32_precision = value
+        try:
+            yield
+        finally:
+            conv.fp32_precision, matmul.fp32_precision = prev
 
 
 def _add_bias(y, b):

@@ -19,6 +19,17 @@ the repository root, as one shared library with a plain C interface loaded
 through ``ctypes``. Nothing is compiled or loaded at import: the CPU tests
 import this module on machines without ``nvcc``.
 
+NaN scores. Both kernels start each row from (+inf, code 0) and take a
+score only when it is strictly less than the best so far, so a NaN score is
+never chosen: the kernels skip a NaN code and keep the rest of its tile, and
+a row whose scores are all NaN (a NaN in z) gets code 0. The plain version
+(``ops/quantizer.py::nearest_code_torch``, the CPU path) follows
+``torch.argmin``, which returns the first NaN: a NaN codebook row takes every
+row. The JAX package has two rules of its own: ``jnp.argmin`` returns the
+first NaN, and its Pallas kernel skips the whole code tile whose minimum is
+NaN (``pallas_quantizer.py:123``). Such scores arise only in a run that has
+already diverged; ``tests/test_torch_cuda_kernel.py`` pins the rule.
+
 ``launches`` counts calls that launched a kernel and ``launches_by_route``
 splits it by route, so a run can show that its main path went through a
 kernel; only ``nearest_code_indices`` adds to them (one per call, also where
