@@ -69,7 +69,21 @@ stops the script with a non-zero exit and no result line:
    every response and the service's counters are checked; a wave's ms
    (CUDA events around ``run_wave``, at the host's pace), sampled images/s,
    p50/p99 request latency, occupancy, and a ``torch.profiler`` breakdown of
-   one wave. Phases 10 to 12 launch neither nearest-code kernel.
+   one wave. Phases 10 to 12 launch neither nearest-code kernel;
+13. the prior's training (``train-prior`` through ``vqvae_tpu_torch.cli.main``)
+   at the reference defaults (512 codes, dim 64, 15 layers, batch 32,
+   fp32/"highest") on the 12,000 grids phase 3 extracted (the last 500 for
+   validation): epochs 1 and 2 in chunks of 50 with per-epoch samples, every
+   loss finite, each epoch's validation CE within 0.1 nats of the JAX run's
+   (artifacts/prior_bf16_convergence.json), the samples (100, 8, 8) codes in
+   [0, 512); a resume to epoch 3 that continues the history; the saved file
+   through ``load_prior`` and ``sample``; one epoch in bf16/"default" with
+   finite losses; one step's gradients on the card against the CPU (largest
+   error relative to each parameter's largest gradient at most 1e-4); the
+   same 5 updates twice; and for the record a step's ms, grids/s, host
+   queueing, share of the peak (``utils/flops.py``) and peak memory at batch
+   32 and 256 in fp32 and bf16, and a ``torch.profiler`` breakdown of 20
+   steps at batch 256. It launches neither nearest-code kernel.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -97,9 +111,6 @@ SAMPLES_R5 = os.path.join(ROOT, "artifacts", "e2e_r5", "samples.npz")
 PRIOR_SEED = 1234                     # the draws of phase 10
 REQUEST_SIZES = (1, 10, 64, 100)      # phase 12: one client thread each, 3 requests
 MODES = ("highest", "high", "default")
-# H100 SXM published peaks (dense): bytes/s of HBM3, FLOP/s by operand type.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
 MAIN_SHAPE = (16_384, 512, 64)        # extraction: batch 256 x 8 x 8 latents
 BENCH_SHAPE = (65_536, 512, 64)       # the JAX bench.py batch of 1,024
 TPU_TEST_SHAPES = ((2048, 512, 64), (2048, 8192, 256), (1000, 300, 48))
@@ -113,11 +124,19 @@ DEVICE_ITEM_GROUPS = (
     ("copies", ("Memcpy", "Memset")),
     ("cuDNN layout conversions", ("nhwcToNchw", "nchwToNhwc")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
-    ("scatter-add, gathers", ("indexFunc", "index_", "gather", "scatter")),
+    ("scatter-add, gathers", ("indexFunc", "index_", "gather", "scatter", "embedding",
+                              "indexing_backward")),
+    ("softmax, cross-entropy", ("SoftMax", "softmax", "nll_loss")),
     ("convolutions (cuDNN, cuBLAS)", ("fprop", "dgrad", "wgrad", "winograd", "gemm", "convolve",
                                       "cudnn", "cutlass", "nvjet")),
 )
 TRAIN_BATCH = 256                     # a train step of 16,384 rows
+# phase 13: the JAX run's validation CE after epochs 1 and 2 on the e2e_r5
+# latents (artifacts/prior_bf16_convergence.json, val_ce_fp32), and the bound
+PRIOR_VAL_CE_JAX = (5.607869, 5.606247)
+PRIOR_VAL_CE_TOL = 0.1
+PRIOR_TRAIN_FLAGS = ()                # train-prior's defaults: 512 codes, dim 64, 15 layers, batch 32
+PRIOR_STEP_BATCHES = (32, 256)
 SPIN_CYCLES = 20_000_000              # device spin (about 11 ms) that lets the host queue ahead
 DEVICE = "cuda"
 
@@ -186,27 +205,31 @@ def tensor_core_counts(cuda_quantizer, lib_path) -> dict:
 
 
 def bound(n: int, k: int, d: int, mode: str):
-    """Least time (ms) for the search on an H100 SXM, and what binds it.
+    """Least time (ms) for the search on an H100 SXM (published peaks,
+    ``vqvae_tpu_torch/utils/flops.py``), and what binds it.
 
     Bytes: z and the codebook read once (fp32, as given), idx written once.
     Operations: 2NKD multiply-adds; "high" does three bf16 products.
     """
+    from vqvae_tpu_torch.utils.flops import H100_SXM
+
     nbytes = 4 * (n * d + k * d + n)
     flops = 2.0 * n * k * d
     if mode == "highest":
-        t_ops = flops / PEAK_FLOPS["fp32"]
+        t_ops = flops / H100_SXM.peak_fp32_flops
     else:
-        t_ops = (3 if mode == "high" else 1) * flops / PEAK_FLOPS["bf16"]
-    t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = (3 if mode == "high" else 1) * flops / H100_SXM.peak_bf16_flops
+    t_bytes = nbytes / H100_SXM.hbm_bytes_per_sec
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def profile_device(tag: str, what: str, fn, top: int = 12) -> None:
+def profile_device(tag: str, what: str, fn, top: int = 12) -> dict:
     """torch.profiler over ``fn()``: device time by kernel, the share of the
     wall time in which the card ran anything (kernels and copies, overlaps
     merged), the hand-written kernels' share and the number of
     device-to-host copies. The profiler's own cost is in the wall time, so
-    the busy share is a lower bound."""
+    the busy share is a lower bound. Returns the printed figures (empty
+    when the profiler saw no device activity)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -225,7 +248,7 @@ def profile_device(tag: str, what: str, fn, top: int = 12) -> None:
     spans = sorted((e.time_range.start, e.time_range.end) for e in device_events)
     if not spans:
         print(f"[{tag}] the profiler saw no device activity: busy share not measured")
-        return
+        return {}
     busy, (cur_s, cur_e) = 0.0, spans[0]
     for s, e in spans[1:]:
         if s > cur_e:
@@ -256,6 +279,9 @@ def profile_device(tag: str, what: str, fn, top: int = 12) -> None:
         for g, us in sorted(groups.items(), key=lambda kv: -kv[1])))
     dtoh = sum(c for name, c in count.items() if "Memcpy DtoH" in name)
     print(f"[{tag}] device-to-host copies (Memcpy DtoH): {dtoh}")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "busy_share": busy / wall_us,
+            "launches": len(device_events), "dtoh": dtoh,
+            "groups_ms": {g: us / 1e3 for g, us in groups.items()}}
 
 
 def relative_gradient_errors(grads: dict, grads_ref: dict) -> dict:
@@ -464,6 +490,199 @@ def sampling_phases(dev, smi: str) -> dict:
     profile_device("12", "one wave of 64 grids (run_wave)", service.run_wave, top=16)
     check(cuda_quantizer.launches == 0, "the sampling path launched a nearest-code kernel")
     print(f"[12] nearest-code kernel launches in phases 10-12: {cuda_quantizer.launches} (decode is a gather)")
+    return rows
+
+
+def prior_training_phase(smi: str, codes: np.ndarray) -> dict:
+    """Phase 13: the prior's training on the card, on the codes phase 3
+    extracted (11,500 training grids, the last 500 for validation).
+    Returns the numbers of the record."""
+    import tempfile
+
+    from vqvae_tpu_torch import cli
+    from vqvae_tpu_torch.config import PixelCNNConfig, TrainConfig
+    from vqvae_tpu_torch.data.datasets import load_dataset
+    from vqvae_tpu_torch.ops import cuda_quantizer
+    from vqvae_tpu_torch.pipelines.viz import load_prior
+    from vqvae_tpu_torch.train import pixelcnn_train
+    from vqvae_tpu_torch.train.checkpoint import peek_hyperparameters
+    from vqvae_tpu_torch.train.pixelcnn_train import PixelCNNTrainer
+    from vqvae_tpu_torch.utils.flops import H100_SXM, pixelcnn_train_step_flops_per_grid
+
+    rows = {}
+    cuda_quantizer.reset_launch_counts()
+    runs, real_train = [], pixelcnn_train.train_pixelcnn
+
+    def recording(*args, **kw):  # train-prior's loop, its return value kept for the checks
+        out = real_train(*args, **kw)
+        runs.append(out)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir, results = os.path.join(tmp, "data"), os.path.join(tmp, "results")
+        os.makedirs(data_dir)
+        np.save(os.path.join(data_dir, "latent_e_indices.npy"), codes)
+        common = ["--data_dir", data_dir, "--steps_per_dispatch", "50", *PRIOR_TRAIN_FLAGS]
+        saved = os.path.join(results, "latent_block_pixelcnn.npz")
+        pixelcnn_train.train_pixelcnn = recording
+        try:
+            # -- train: epochs 1 and 2, saving every epoch, samples after each
+            t0 = time.perf_counter()
+            rc = cli.main(["train-prior", "--epochs", "3", "--gen_samples", "-save",
+                           "--results_dir", results, *common])
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t0
+            state, out = runs[-1]
+            hist = out["history"]
+            val, losses = hist["val_loss"], hist["train_loss"]
+            rows.update(train_prior_s=t_train, train_loss=losses, val_ce=val,
+                        updates=state.step, best_val_loss=out["best_val_loss"])
+            print(f"[13] train-prior --epochs 3 (epochs 1-2 at batch 32, {state.step} updates, chunks of "
+                  f"50, -save, --gen_samples): rc {rc}, {t_train:.3f} s (host clock, validation, samples "
+                  f"and checkpoints included); train loss {losses}, validation CE {val}; the JAX run "
+                  f"{list(PRIOR_VAL_CE_JAX)} (bound {PRIOR_VAL_CE_TOL} nats)")
+            check(rc == 0 and len(val) == 2 and state.step == 2 * ((len(codes) - 500) // 32),
+                  f"train-prior did not run 2 epochs: {hist}, {state.step} updates")
+            # an epoch's mean is finite only if each of its losses is (all are >= 0)
+            check(np.isfinite(losses).all() and np.isfinite(val).all(), f"a prior loss is not finite: {hist}")
+            for epoch, (ours, theirs) in enumerate(zip(val, PRIOR_VAL_CE_JAX), start=1):
+                check(abs(ours - theirs) <= PRIOR_VAL_CE_TOL,
+                      f"epoch {epoch}: validation CE {ours} is not within {PRIOR_VAL_CE_TOL} of the JAX run's {theirs}")
+            samples = out["samples"]
+            check(len(samples) == 2 and all(g.shape == (100, 8, 8) and g.dtype == np.int32
+                                            and g.min() >= 0 and g.max() < 512 for g in samples),
+                  "the per-epoch samples are not (100, 8, 8) int32 codes in [0, 512)")
+            rows["sample_distinct_codes"] = [len(np.unique(g)) for g in samples]
+            print(f"[13] per-epoch samples: {[g.shape for g in samples]}, distinct codes "
+                  f"{rows['sample_distinct_codes']}")
+
+            # -- resume: epoch 3 on top of the file of epoch 2
+            rc = cli.main(["train-prior", "--epochs", "4", "--resume", "-save",
+                           "--results_dir", results, *common])
+            state_r, out_r = runs[-1]
+            hist_r = out_r["history"]
+            print(f"[13] --resume --epochs 4: rc {rc}, validation CE {hist_r['val_loss']}, "
+                  f"{state_r.step} updates")
+            check(rc == 0 and hist_r["val_loss"][:2] == val and len(hist_r["val_loss"]) == 3
+                  and state_r.step == 3 * state.step // 2, "the resumed run did not continue from epoch 2")
+            rows["resumed_val_ce"] = hist_r["val_loss"][2]
+
+            # -- reload: the saved file feeds load_prior and sample
+            prior, metrics, hp = load_prior(saved, device=DEVICE)
+            out_s = os.path.join(tmp, "s.npz")
+            rc = cli.main(["sample", "--vqvae-checkpoint", R5, "--prior-checkpoint", saved,
+                           "--n_samples", "10", "--out", out_s])
+            s = dict(np.load(out_s))
+            print(f"[13] the saved prior reloaded ({sum(p.numel() for p in prior.parameters())} parameters, "
+                  f"{len(metrics['val_loss'])} epochs of history): sample rc {rc}, codes {s['codes'].shape}, "
+                  f"images {s['images'].shape}")
+            check(rc == 0 and s["codes"].shape == (10, 8, 8) and s["images"].shape == (10, 32, 32, 3)
+                  and np.isfinite(s["images"]).all() and 0 <= s["codes"].min() <= s["codes"].max() < 512,
+                  "sampling from the saved prior failed")
+
+            # -- bf16 / default: one epoch
+            t0 = time.perf_counter()
+            rc = cli.main(["train-prior", "--epochs", "2", "--compute_dtype", "bfloat16",
+                           "--conv_precision", "default", "--results_dir", os.path.join(tmp, "bf16"), *common])
+            t_bf16 = time.perf_counter() - t0
+            hist_b = runs[-1][1]["history"]
+            rows.update(bf16_epoch_s=t_bf16, bf16_train_loss=hist_b["train_loss"][0],
+                        bf16_val_ce=hist_b["val_loss"][0])
+            print(f"[13] bf16/default, 1 epoch: rc {rc}, {t_bf16:.3f} s (host clock), train loss "
+                  f"{hist_b['train_loss']}, validation CE {hist_b['val_loss']}")
+            check(rc == 0 and np.isfinite(hist_b["train_loss"]).all() and np.isfinite(hist_b["val_loss"]).all(),
+                  "bf16 prior training: a loss is not finite")
+        finally:
+            pixelcnn_train.train_pixelcnn = real_train
+
+        cfg = PixelCNNConfig.from_dict(peek_hyperparameters(saved))
+        train_ds, val_ds, _var, _info = load_dataset("LATENT_BLOCK", data_dir)
+
+    # -- one step's gradients, card vs CPU, same weights, a batch of 32 ----------
+    x32, l32 = train_ds.data[:32], train_ds.labels[:32]
+
+    def gradients(device, c):
+        trainer = PixelCNNTrainer(c, TrainConfig(), device=device)
+        st = trainer.init_state(torch.Generator().manual_seed(7))
+        trainer.step(st, x32, l32)  # the step moves the weights, not the gradients
+        return {n: p.grad.clone() for n, p in st.model.named_parameters()}
+
+    grads_cpu = gradients("cpu", cfg)
+    errs = relative_gradient_errors(gradients(DEVICE, cfg), grads_cpu)
+    errs_tf32 = relative_gradient_errors(gradients(DEVICE, cfg.replace(conv_precision="default")), grads_cpu)
+    worst = max(errs, key=errs.get)
+    rows.update(grad_rel_err=errs[worst], grad_rel_err_tf32=max(errs_tf32.values()))
+    print(f"[13] gradients of one step, card vs CPU (batch of 32, {len(errs)} parameters): largest error / "
+          f"largest gradient, worst {errs[worst]:.3g} ({worst}), median {float(np.median(list(errs.values()))):.3g}; "
+          f"with TF32 allowed (conv_precision='default'): worst {rows['grad_rel_err_tf32']:.3g}")
+    check(errs[worst] <= 1e-4, f"the prior's gradients on the card drift from the CPU: {errs[worst]}")
+
+    # -- the same 5 updates twice from the same state ---------------------------
+    trainer = PixelCNNTrainer(cfg, TrainConfig(), device=DEVICE)
+    trainer.stage_dataset(train_ds, val_ds)
+    idx5 = np.arange(5 * 32).reshape(5, 32)
+    finals = []
+    for _ in range(2):
+        st = trainer.init_state(torch.Generator().manual_seed(11))
+        st, l5 = trainer.steps_by_index(st, idx5)
+        finals.append(([p.detach().clone() for p in st.model.parameters()], l5.cpu().numpy()))
+    rows["repeat_param_diff"] = max(float((a - b).abs().max()) for a, b in zip(finals[0][0], finals[1][0]))
+    rows["repeat_loss_diff"] = float(np.abs(finals[0][1] - finals[1][1]).max())
+    print(f"[13] the same 5 updates twice from the same state (batch 32): largest parameter difference "
+          f"{rows['repeat_param_diff']:.3g}, largest loss difference {rows['repeat_loss_diff']:.3g}")
+
+    # -- step times, share of the peak, memory, profile (records, not checks) ----
+    flops_grid = pixelcnn_train_step_flops_per_grid(img_dim=cfg.img_dim, dim=cfg.dim,
+                                                    n_layers=cfg.n_layers, input_dim=cfg.input_dim)
+    step_rows = []
+    for label, c, peak in (("fp32/highest", cfg, H100_SXM.peak_fp32_flops),
+                           ("bf16/default", cfg.replace(compute_dtype="bfloat16", conv_precision="default"),
+                            H100_SXM.peak_bf16_flops)):
+        for batch in PRIOR_STEP_BATCHES:
+            tr = PixelCNNTrainer(c, TrainConfig(batch_size=batch), device=DEVICE)
+            st = tr.init_state()
+            xb, lb = tr._to_device(train_ds.data[:batch]), tr._to_device(train_ds.labels[:batch])
+            fn = lambda: tr.step(st, xb, lb)  # noqa: E731
+            ms = min(time_ms(fn, iters=30, warmup=10, queue_ahead=False) for _ in range(2))
+            host_ms = math.inf
+            for _ in range(2):  # the host alone: its clock around 30 steps, nothing awaited
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(30):
+                    fn()
+                host_ms = min(host_ms, 1e3 * (time.perf_counter() - t0) / 30)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()  # this state and all else alive in the process
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            peak_mem = torch.cuda.max_memory_allocated()
+            row = {"prior_step": label, "batch": batch, "ms": ms, "grids_per_s": 1e3 * batch / ms,
+                   "host_queue_ms": host_ms, "gflop": flops_grid * batch / 1e9,
+                   "bound_ms": 1e3 * flops_grid * batch / peak,
+                   "share_of_peak": flops_grid * batch / (ms / 1e3) / peak,
+                   "peak_mem_mb": peak_mem / 2**20, "step_mem_mb": (peak_mem - held) / 2**20}
+            step_rows.append(row)
+            print(f"[13] {json.dumps(row)}")
+    rows["steps"] = step_rows
+    print(f"[13] card: {smi}; prior-step times from CUDA events around 30 steps after 10 warm-up, no spin, "
+          f"the faster of two turns; host_queue_ms is the host clock around 30 steps with nothing awaited; "
+          f"share_of_peak against the H100 SXM's published {H100_SXM.peak_fp32_flops / 1e12:.0f} (fp32) and "
+          f"{H100_SXM.peak_bf16_flops / 1e12:.0f} (bf16) TFLOP/s; peak_mem_mb is the process's peak "
+          f"allocation over 3 steps, step_mem_mb what the steps added to what was held before them")
+
+    tr = PixelCNNTrainer(cfg, TrainConfig(batch_size=256), device=DEVICE)
+    st = tr.init_state()
+    tr.stage_dataset(train_ds, val_ds)
+    idx20 = np.arange(20 * 256).reshape(20, 256)
+    tr.steps_by_index(st, idx20[:5])
+    prof = profile_device("13", "20 prior train steps at batch 256, fp32/highest, steps_by_index",
+                          lambda: tr.steps_by_index(st, idx20), top=20)
+    rows["profile"] = {**prof, "launches_per_step": prof.get("launches", 0) / 20}
+    print(f"[13] launches and copies a step {rows['profile']['launches_per_step']:.1f}")
+    check(cuda_quantizer.launches == 0, "the prior's training launched a nearest-code kernel")
+    print(f"[13] nearest-code kernel launches in phase 13: {cuda_quantizer.launches}")
     return rows
 
 
@@ -888,6 +1107,9 @@ def main() -> int:
     t_prior = time.perf_counter()
     prior_rows = sampling_phases(dev, smi)
     print(f"[12] phases 10-12 took {time.perf_counter() - t_prior:.1f} s; {json.dumps(prior_rows)}")
+    t_train_prior = time.perf_counter()
+    train_rows = prior_training_phase(smi, codes)
+    print(f"[13] phase 13 took {time.perf_counter() - t_train_prior:.1f} s; {json.dumps(train_rows)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, route, mode, launches):

@@ -77,8 +77,8 @@ def test_load_dataset_bit_identical_to_jax(tmp_path):
     for a, b in ((tr, jtr), (va, jva)):
         assert a.data.dtype == b.data.dtype and np.array_equal(a.data, b.data)
         assert np.array_equal(a.labels, b.labels)
-    with pytest.raises(ValueError):
-        load_dataset("LATENT_BLOCK", str(tmp_path))
+    with pytest.raises(ValueError, match="not ported"):
+        load_dataset("BLOCK", str(tmp_path))
 
 
 def test_extract_latents_vs_jax_full_width(tmp_path):

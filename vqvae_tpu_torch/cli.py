@@ -2,6 +2,7 @@
 
     python -m vqvae_tpu_torch.cli train-vqvae [--batch_size 32 --n_updates 5000 ...] [--device cpu]
     python -m vqvae_tpu_torch.cli extract-latents --checkpoint results/...npz [--device cpu]
+    python -m vqvae_tpu_torch.cli train-prior [--epochs 100 --batch_size 32 ...] [--device cpu]
     python -m vqvae_tpu_torch.cli sample --vqvae-checkpoint ... --prior-checkpoint ... [--device cpu]
     python -m vqvae_tpu_torch.cli serve --prior-checkpoint ... [--vqvae-checkpoint ...] [--device cpu]
 
@@ -10,9 +11,10 @@ main.py:16-30, gated_pixelcnn.py:27-42), without the mesh flags.
 ``extract-latents``, ``sample`` and ``serve`` rebuild each model from its
 checkpoint's stored hyperparameters; for a file that stores none they take
 the model flags, which must then be given (the command fails and names
-them otherwise). Every command runs on the CUDA card unless ``--device cpu``
-is given. ``train-prior``, ``profile``, ``benchmark`` and ``viz`` come with
-later slices.
+them otherwise). ``train-prior`` trains on ``<data_dir>/latent_e_indices.npy``
+(what ``extract-latents`` writes) and saves ``<results_dir>/latent_block_pixelcnn.npz``.
+Every command runs on the CUDA card unless ``--device cpu`` is given.
+``profile``, ``benchmark`` and ``viz`` come with later slices.
 """
 
 from __future__ import annotations
@@ -180,6 +182,42 @@ def cmd_extract_latents(args) -> int:
     return 0
 
 
+def cmd_train_prior(args) -> int:
+    import os
+
+    from vqvae_tpu_torch.config import PixelCNNConfig, TrainConfig
+    from vqvae_tpu_torch.data.datasets import load_dataset
+    from vqvae_tpu_torch.device import resolve_device
+    from vqvae_tpu_torch.train.pixelcnn_train import train_pixelcnn
+
+    resolve_device(args.device)  # refuse a missing card before reading the data
+    train_ds, val_ds, _var, _info = load_dataset("LATENT_BLOCK", args.data_dir)
+    cfg = PixelCNNConfig(
+        input_dim=args.n_embeddings,
+        dim=args.img_dim ** 2,
+        n_layers=args.n_layers,
+        img_dim=args.img_dim,
+        compute_dtype=args.compute_dtype,
+        conv_precision=args.conv_precision,
+    )
+    train_cfg = TrainConfig(
+        batch_size=args.batch_size,
+        epochs=args.epochs,
+        learning_rate=args.learning_rate,
+        log_interval=args.log_interval,
+        save=args.save,
+        data_dir=args.data_dir,
+        results_dir=args.results_dir,
+        seed=args.seed,
+        gen_samples=args.gen_samples,
+        steps_per_dispatch=args.steps_per_dispatch,
+    )
+    save_path = os.path.join(args.results_dir, "latent_block_pixelcnn.npz")
+    train_pixelcnn(cfg, train_cfg, train_ds, val_ds, save_path=save_path, resume=args.resume,
+                   device=args.device)
+    return 0
+
+
 def cmd_sample(args) -> int:
     import os
 
@@ -257,6 +295,36 @@ def build_parser() -> argparse.ArgumentParser:
     ex.add_argument("--extract_batch", type=int, default=256)
     ex.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     ex.set_defaults(fn=cmd_extract_latents)
+
+    tp = sub.add_parser("train-prior", help="train the GatedPixelCNN prior on latents")
+    tp.add_argument("--batch_size", type=int, default=32)
+    tp.add_argument("--epochs", type=int, default=100)
+    tp.add_argument("--log_interval", type=int, default=100)
+    tp.add_argument("-save", action="store_true",
+                    help="save after every epoch, not only after the best validation loss")
+    tp.add_argument("--img_dim", type=int, default=8)
+    tp.add_argument("--n_embeddings", type=int, default=512)
+    tp.add_argument("--n_layers", type=int, default=15)
+    tp.add_argument("--learning_rate", type=float, default=3e-4)
+    tp.add_argument("--seed", type=int, default=0)
+    tp.add_argument("--data_dir", type=str, default="data")
+    tp.add_argument("--results_dir", type=str, default="results")
+    tp.add_argument("--gen_samples", action="store_true",
+                    help="draw 10 samples of each class after every epoch "
+                         "(reference gated_pixelcnn.py:143-149)")
+    tp.add_argument("--compute_dtype", type=str, default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="the prior's conv-stack dtype; params stay fp32, logits come out fp32")
+    tp.add_argument("--conv_precision", type=str, default="highest",
+                    choices=["highest", "high", "default"],
+                    help="fp32 conv arithmetic: highest = no TF32")
+    tp.add_argument("--resume", action="store_true",
+                    help="resume from the saved prior checkpoint")
+    tp.add_argument("--steps_per_dispatch", type=int, default=1,
+                    help="updates per chunk, gathered on the device from the staged grids; "
+                         "the losses are read back once a chunk")
+    tp.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    tp.set_defaults(fn=cmd_train_prior)
 
     sm = sub.add_parser("sample", help="AR sample codes -> decode images")
     _add_vqvae_flags(sm)

@@ -5,8 +5,9 @@ float32 NHWC in [-1, 1] (the reference's ToTensor + Normalize(0.5, 0.5),
 utils.py:14-16) and ``x_train_var`` the reference's ``np.var(train / 255)``
 on the pre-normalization pixels. CIFAR-10 reads the python-pickle batches
 under ``<root>/cifar-10-batches-py`` when present; otherwise it generates the
-same deterministic synthetic set as the JAX package, bit for bit. BLOCK and
-LATENT_BLOCK come with the slices that need them.
+same deterministic synthetic set as the JAX package, bit for bit.
+LATENT_BLOCK is the code grids ``extract-latents`` writes, the prior's
+training data. BLOCK is not ported yet.
 """
 
 from __future__ import annotations
@@ -94,11 +95,40 @@ def load_cifar10(root: str = "data") -> Tuple[ArrayDataset, ArrayDataset, float,
     return train, val, x_train_var, info
 
 
+_LATENT_FILE = "latent_e_indices.npy"
+_LATENT_N_VAL = 500
+
+
+def load_latent_block(root: str = "data") -> Tuple[ArrayDataset, ArrayDataset, float, Dict]:
+    """The code grids saved by ``extract-latents`` (``<root>/latent_e_indices.npy``),
+    int32, the last 500 for validation (reference datasets/block.py:45,
+    utils.py:48-58), labels all zero. Flat (N, h*w) grids are reshaped
+    square for the prior. The codes are discrete and the loss is a
+    cross-entropy, so the variance normalizer is 1.0."""
+    path = os.path.join(root, _LATENT_FILE)
+    data = np.asarray(np.load(path, allow_pickle=False))
+    if data.ndim == 2:
+        side = int(round(data.shape[1] ** 0.5))
+        if side * side == data.shape[1]:
+            data = data.reshape(-1, side, side)
+    data = data.astype(np.int32)
+    train_x, val_x = data[:-_LATENT_N_VAL], data[-_LATENT_N_VAL:]
+    train = ArrayDataset(train_x, np.zeros(len(train_x), np.int32))
+    val = ArrayDataset(val_x, np.zeros(len(val_x), np.int32))
+    info = {"name": "LATENT_BLOCK", "path": path, "n_train": len(train), "n_val": len(val)}
+    return train, val, 1.0, info
+
+
 def load_dataset(name: str, root: str = "data") -> Tuple[ArrayDataset, ArrayDataset, float, Dict]:
-    """Dataset dispatcher (reference utils.py:74-98); this slice has CIFAR10."""
-    if name.upper() == "CIFAR10":
+    """Dataset dispatcher (reference utils.py:74-98): CIFAR10 and LATENT_BLOCK."""
+    key = name.upper()
+    if key == "CIFAR10":
         return load_cifar10(root)
-    raise ValueError(f"unknown dataset {name!r}; the port loads CIFAR10")
+    if key == "LATENT_BLOCK":
+        return load_latent_block(root)
+    if key == "BLOCK":
+        raise ValueError("dataset 'BLOCK' is not ported yet; the port loads CIFAR10 and LATENT_BLOCK")
+    raise ValueError(f"unknown dataset {name!r}; expected CIFAR10, BLOCK, or LATENT_BLOCK")
 
 
-__all__ = ["ArrayDataset", "load_cifar10", "load_dataset"]
+__all__ = ["ArrayDataset", "load_cifar10", "load_dataset", "load_latent_block"]

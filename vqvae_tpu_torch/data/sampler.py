@@ -1,13 +1,15 @@
-"""Batch sampler of the VQ-VAE trainer (port of ``vqvae_tpu/data/sampler.py:20-61``).
+"""Batch samplers of the trainers (port of ``vqvae_tpu/data/sampler.py``):
+``ReplacementSampler`` for the VQ-VAE, ``EpochSampler`` for the prior.
 
-The same numpy draws in the same order as the JAX package's sampler, so both
-trainers see the same batches from the same seed, and a resumed run can
-replay the schedule. With shards, every shard derives the same global batch
-from the shared stream and takes a contiguous slice of it. ``EpochSampler``
-comes with the prior.
+The same numpy draws in the same order as the JAX package's samplers, so both
+packages' trainers see the same batches from the same seed, and a resumed run
+can replay the schedule. With shards, every shard derives the same global
+batch from the shared stream and takes a contiguous slice of it.
 """
 
 from __future__ import annotations
+
+from typing import Iterator
 
 import numpy as np
 
@@ -55,4 +57,38 @@ class ReplacementSampler:
         return _shard_slice(batch, self.num_shards, self.shard_id)
 
 
-__all__ = ["ReplacementSampler"]
+class EpochSampler:
+    """Epoch traversal with optional shuffle and drop_last, the torch
+    DataLoader semantics of the prior's loop (reference gated_pixelcnn.py:80,
+    utils.py:61-71). Each ``epoch()`` takes a fresh permutation from the
+    shared stream, as a DataLoader re-iterated every epoch reshuffles.
+    """
+
+    def __init__(
+        self,
+        n: int,
+        batch_size: int,
+        seed: int = 0,
+        shuffle: bool = True,
+        drop_last: bool = False,
+        num_shards: int = 1,
+        shard_id: int = 0,
+    ):
+        self.n = int(n)
+        self.batch_size = int(batch_size)
+        self.shuffle = bool(shuffle)
+        self.drop_last = bool(drop_last)
+        self.num_shards = int(num_shards)
+        self.shard_id = int(shard_id)
+        self._rng = np.random.default_rng(seed)
+
+    def epoch(self) -> Iterator[np.ndarray]:
+        """This shard's slice of each batch of one pass over the data."""
+        order = self._rng.permutation(self.n) if self.shuffle else np.arange(self.n, dtype=np.int64)
+        b = self.batch_size
+        end = (self.n // b) * b if self.drop_last else self.n
+        for start in range(0, end, b):
+            yield _shard_slice(order[start:start + b], self.num_shards, self.shard_id)
+
+
+__all__ = ["EpochSampler", "ReplacementSampler"]

@@ -3,24 +3,30 @@ packages' weights and train states (numpy and torch only).
 
 The file is the JAX package's v2 ``.npz`` (``vqvae_tpu/train/checkpoint.py``):
 a ``__meta__`` JSON string (format_version, step, metrics, hyperparameters,
-n_leaves) plus one array per leaf of the JAX ``TrainState`` under its pytree
+n_leaves) plus one array per leaf of the JAX train state under its pytree
 key path::
 
     leaf::.params['encoder']['conv1_w']            float32, HWIO
     leaf::.opt_state[0].count                      int32
-    leaf::.opt_state[0].mu['encoder']['conv1_w']   float32 (also .nu, .nu_max)
+    leaf::.opt_state[0].mu['encoder']['conv1_w']   float32 (also .nu, and .nu_max with AMSGrad)
     leaf::.step                                    int32
     leaf::.ema_counts, leaf::.ema_means            float32, only with an EMA codebook
 
 so a file written here loads with the JAX package's ``load_checkpoint`` into
-its ``TrainState`` and the reverse, optimizer state included. v1 files
+its train state and the reverse, optimizer state included. Two train states
+travel this way: the VQ-VAE's (``TrainState``: AMSGrad's ``mu``, ``nu``,
+``nu_max``; 94 leaves at full width) and the prior's (``PixelCNNState``:
+Adam's ``mu``, ``nu``; 422 leaves at full width). The moments are the ones
+the optimizer names in its ``MOMENTS`` (``train/optim.py``). In a prior's
+file the meta ``step`` is the epoch it was saved after, while
+``leaf::.step`` counts updates; both are kept as they are. v1 files
 (positional ``leaf_{i}`` keys) are not supported and are refused.
 
 Between the packages a train state travels as a *tree*: a nested dict of
 numpy arrays in the JAX layouts and dtypes, ``{"params": {...}, "opt_state":
-{"count", "mu": {...}, "nu": {...}, "nu_max": {...}}, "step"[, "ema_counts",
-"ema_means"]}``. ``train_state_to_jax`` makes one from the port's
-``TrainState`` (always copying, so the tree is a snapshot that later in-place
+{"count", "mu": {...}, "nu": {...}[, "nu_max": {...}]}, "step"[,
+"ema_counts", "ema_means"]}``. ``train_state_to_jax`` makes one from the
+port's state (always copying, so the tree is a snapshot that later in-place
 updates do not touch), ``train_state_from_jax`` loads one into it.
 
 Layouts: conv kernels are (kh, kw, C_in, C_out) in JAX and (C_out, C_in, kh,
@@ -46,10 +52,10 @@ FORMAT_VERSION = 2
 _LEAF_PREFIX = "leaf::"
 _PARAMS_PREFIX = _LEAF_PREFIX + ".params"
 _KEY_RE = re.compile(r"\['([^']*)'\]")
-_MOMENTS = ("mu", "nu", "nu_max")
-# key-path prefix of each subtree of the JAX TrainState that holds a tree
-# shaped like the parameters
-_SUBTREES = {".params": ("params",), **{f".opt_state[0].{m}": ("opt_state", m) for m in _MOMENTS}}
+# key-path prefix of each subtree of a JAX train state that holds a tree
+# shaped like the parameters (an optimizer keeps some of the moments)
+_SUBTREES = {".params": ("params",),
+             **{f".opt_state[0].{m}": ("opt_state", m) for m in ("mu", "nu", "nu_max")}}
 # key path of each single leaf
 _SCALARS = {".opt_state[0].count": ("opt_state", "count"), ".step": ("step",),
             ".ema_counts": ("ema_counts",), ".ema_means": ("ema_means",)}
@@ -119,18 +125,20 @@ def params_to_jax(state_dict: Mapping) -> Dict[str, Any]:
 
 
 def train_state_to_jax(state) -> Dict[str, Any]:
-    """The port's ``TrainState`` -> the JAX ``TrainState`` as a tree (a copy)."""
+    """The port's ``TrainState`` or ``PixelCNNState`` -> the JAX train state
+    as a tree (a copy)."""
     named = dict(state.model.named_parameters())  # shared residual weights are listed once
     opt = state.optimizer
     tree = {
         "params": params_to_jax(named),
         "opt_state": {
             "count": np.asarray(opt.count, np.int32),
-            **{m: params_to_jax({n: opt.state[p][m] for n, p in named.items()}) for m in _MOMENTS},
+            **{m: params_to_jax({n: opt.state[p][key] for n, p in named.items()})
+               for m, key in opt.MOMENTS.items()},
         },
         "step": np.asarray(state.step, np.int32),
     }
-    if state.ema_counts is not None:
+    if getattr(state, "ema_counts", None) is not None:
         tree["ema_counts"] = np.array(state.ema_counts.detach().cpu().numpy(), np.float32)
         tree["ema_means"] = np.array(state.ema_means.detach().cpu().numpy(), np.float32)
     return tree
@@ -152,9 +160,10 @@ def _check_tree(want: Dict[str, np.ndarray], got: Dict[str, np.ndarray], what: s
 
 @torch.no_grad()
 def train_state_from_jax(tree: Mapping, state, what: str = "state"):
-    """Load a JAX ``TrainState`` tree into the port's ``state``, in place:
-    parameters, ``mu``/``nu``/``nu_max`` of every parameter, ``count``,
-    ``step`` and the EMA statistics. The tree must have exactly the leaves,
+    """Load a JAX train-state tree into the port's ``state``, in place:
+    parameters, the optimizer's moments of every parameter (``mu``, ``nu``
+    and, with AMSGrad, ``nu_max``), ``count``, ``step`` and the EMA
+    statistics. The tree must have exactly the leaves,
     shapes and dtypes of ``state``'s own (``train_state_to_jax(state)``);
     anything else raises ``ValueError`` and leaves ``state`` as it was."""
     flat = flatten_tree(tree)
@@ -163,12 +172,12 @@ def train_state_from_jax(tree: Mapping, state, what: str = "state"):
     for name, p in state.model.named_parameters():
         key = "".join(f"['{k}']" for k in name.split("."))
         p.copy_(torch.from_numpy(_from_jax_layout(name, flat[f"{_LEAF_PREFIX}.params{key}"])))
-        for m in _MOMENTS:
+        for m, slot in opt.MOMENTS.items():
             arr = flat[f"{_LEAF_PREFIX}.opt_state[0].{m}{key}"]
-            opt.state[p][m].copy_(torch.from_numpy(_from_jax_layout(name, arr)))
+            opt.state[p][slot].copy_(torch.from_numpy(_from_jax_layout(name, arr)))
     opt.count = int(flat[_LEAF_PREFIX + ".opt_state[0].count"])
     state.step = int(flat[_LEAF_PREFIX + ".step"])
-    if state.ema_counts is not None:
+    if getattr(state, "ema_counts", None) is not None:
         state.ema_counts.copy_(torch.from_numpy(np.array(flat[_LEAF_PREFIX + ".ema_counts"])))
         state.ema_means.copy_(torch.from_numpy(np.array(flat[_LEAF_PREFIX + ".ema_means"])))
     return state

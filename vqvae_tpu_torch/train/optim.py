@@ -1,5 +1,7 @@
-"""Adam with AMSGrad in torch-1.1.0 semantics, written by hand
-(port of ``vqvae_tpu/train/optim.py:56-106``).
+"""The two optimizers of the port: the VQ-VAE's Adam with AMSGrad in
+torch-1.1.0 semantics, written by hand (port of
+``vqvae_tpu/train/optim.py:56-106``), and the prior's plain Adam, which is
+torch's own (``Adam`` below).
 
 The reference trains with ``optim.Adam(..., amsgrad=True)`` of torch 1.1.0
 (reference main.py:55), and the JAX package reproduces that update as
@@ -26,6 +28,17 @@ corrections are reckoned on the host in double precision from it, as torch
 arithmetic goes through ``torch._foreach_*`` calls over all parameters at
 once: a handful of fused launches an update in place of eight small ones
 for each of some thirty parameters.
+
+The prior trains with plain Adam (reference gated_pixelcnn.py:71; the JAX
+package's ``optax.adam(lr, 0.9, 0.999, 1e-8)``). There torch 2.x's
+``torch.optim.Adam`` is the same update as optax's, eps added after the bias
+correction, so the library's update is used as it is;
+``tests/test_torch_pixelcnn_train.py`` holds it against optax.
+
+Both optimizers name their moments for the checkpoint bridge
+(``train/checkpoint.py``): ``MOMENTS`` maps each moment of the JAX optimizer
+state (``mu``, ``nu``, ``nu_max``) to the key of ``optimizer.state[p]`` that
+holds it, and ``count`` is the number of completed updates.
 """
 
 from __future__ import annotations
@@ -46,6 +59,8 @@ class TorchAmsgrad(torch.optim.Optimizer):
     State per parameter: ``mu``, ``nu``, ``nu_max``; ``count`` is the number
     of completed updates, kept per group and equal across groups.
     """
+
+    MOMENTS = {"mu": "mu", "nu": "nu", "nu_max": "nu_max"}
 
     def __init__(self, params: Iterable, lr: float = 3e-4, betas=(0.9, 0.999),
                  eps: float = 1e-8):
@@ -95,6 +110,42 @@ class TorchAmsgrad(torch.optim.Optimizer):
         return loss
 
 
+class Adam(torch.optim.Adam):
+    """``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)``, the prior's
+    optimizer, with its state made at construction (zero moments, step 0)
+    so that a fresh state can be saved and a checkpoint loaded into it
+    before the first update. The update is the library's.
+
+    torch keeps a ``step`` for each parameter (a CPU scalar, so reading it
+    waits for nothing on the device) where optax keeps one ``count``;
+    ``count`` reads and sets them together.
+    """
+
+    MOMENTS = {"mu": "exp_avg", "nu": "exp_avg_sq"}
+
+    def __init__(self, params: Iterable, lr: float = 3e-4):
+        super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p] = {"step": torch.tensor(0.0, dtype=torch.float32),
+                                 "exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
+
+    def _params(self):
+        return [p for group in self.param_groups for p in group["params"]]
+
+    @property
+    def count(self) -> int:
+        steps = {int(self.state[p]["step"]) for p in self._params()}
+        if len(steps) != 1:  # a parameter left out of an update (its .grad was None)
+            raise ValueError(f"parameters disagree on the number of updates: {sorted(steps)}")
+        return steps.pop()
+
+    @count.setter
+    def count(self, value: int) -> None:
+        for p in self._params():
+            self.state[p]["step"].fill_(int(value))
+
+
 def make_optimizer(params: Iterable, learning_rate: float, impl: str = "torch") -> TorchAmsgrad:
     """Adam with AMSGrad, torch-default betas and eps (reference main.py:55).
 
@@ -113,4 +164,4 @@ def make_optimizer(params: Iterable, learning_rate: float, impl: str = "torch") 
     raise ValueError(f"unknown amsgrad_impl {impl!r} (expected 'torch')")
 
 
-__all__ = ["TorchAmsgrad", "make_optimizer"]
+__all__ = ["Adam", "TorchAmsgrad", "make_optimizer"]
