@@ -84,6 +84,25 @@ stops the script with a non-zero exit and no result line:
    queueing, share of the peak (``utils/flops.py``) and peak memory at batch
    32 and 256 in fp32 and bf16, and a ``torch.profiler`` breakdown of 20
    steps at batch 256. It launches neither nearest-code kernel.
+14. data and codebook parallelism: both kernels' best-value output against
+   the plain version (every mode and route, phase 2's shapes: the indices
+   with values equal those without, each value within the near-tie bound of
+   the float64 minimum); the codebook split into 2, 4 and 8 contiguous shards
+   (and K = 600 into 2), searched shard by shard and combined, against the
+   unsharded call (bit for bit on "fma"; "mma" to the near-tie rule), and a
+   codebook duplicated across shards; four ranks of ``train-vqvae
+   --distributed --n_data 2 --n_code 2`` (gloo, sharing the card; NCCL, a
+   card a rank, where there are four cards) (each a process of this script that runs the CLI and writes a record:
+   launches, digests of its weights, fingerprints of the latents it searched
+   with, times of its steps, gradient all-reduces and combines) for 20
+   updates at full width and global batch 256 from one saved state, against
+   a one-process run over the first 5 (update 1's perplexity bit for bit
+   and its losses within 2 ulps; updates 2-5 losses rtol 1e-6 and the
+   perplexity within three near-tie rows; parameters atol 6e-4), the replicated weights bit-identical on all ranks, each rank
+   20 "fma" launches, the rank-0 checkpoint through ``load_model`` and
+   ``extract_latents``; a bf16/"default" 2 x 2 run (10 "mma" launches a
+   rank) and an EMA run (the counts summed over the shards follow the
+   decay); one NCCL rank, and two on two cards where there are two.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -92,6 +111,7 @@ repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -138,6 +158,10 @@ PRIOR_VAL_CE_TOL = 0.1
 PRIOR_TRAIN_FLAGS = ()                # train-prior's defaults: 512 codes, dim 64, 15 layers, batch 32
 PRIOR_STEP_BATCHES = (32, 256)
 SPIN_CYCLES = 20_000_000              # device spin (about 11 ms) that lets the host queue ahead
+# phase 14: codebook splits (K, n_code), the parallel runs' global batch, a rank's time limit
+SHARD_SPLITS = ((512, 2), (512, 4), (512, 8), (600, 2))
+PARALLEL_BATCH = 256
+PARALLEL_TIMEOUT_S = 300
 DEVICE = "cuda"
 
 
@@ -686,6 +710,400 @@ def prior_training_phase(smi: str, codes: np.ndarray) -> dict:
     return rows
 
 
+def fingerprint(t: torch.Tensor) -> torch.Tensor:
+    """Two int64 sums of a float32 tensor's bits (plain and weighted by
+    position), on its device: equal tensors, equal prints."""
+    bits = t.detach().contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+    weights = torch.arange(1, bits.numel() + 1, device=bits.device, dtype=torch.int64)
+    return torch.stack([bits.sum(), (bits * weights).sum()])
+
+
+def digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def rank_worker(out_path: str, argv: list) -> int:
+    """One rank of phase 14: ``vqvae_tpu_torch.cli.main(argv)`` (``train-vqvae
+    --distributed ...``) with timers around each update, each gradient
+    all-reduce and each cross-shard combine, and a fingerprint of the
+    latents of every local search; then a JSON record of the rank at
+    ``out_path``."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from vqvae_tpu_torch import cli
+    from vqvae_tpu_torch.ops import cuda_quantizer
+    from vqvae_tpu_torch.parallel import code_parallel
+    from vqvae_tpu_torch.train import vqvae_train
+
+    on_card = "cpu" not in argv
+    spans = {"step": [], "reduce": [], "combine": []}
+    prints, captured = [], {}
+
+    def stamp():
+        if on_card:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            return event
+        return time.perf_counter()
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            start = stamp()
+            out = fn(*args, **kwargs)
+            spans[key].append((start, stamp()))
+            return out
+        return wrapper
+
+    real_search, real_train = code_parallel.local_search, vqvae_train.train_vqvae
+
+    def local_search(z_flat, codebook, precision):
+        prints.append(fingerprint(z_flat))
+        return real_search(z_flat, codebook, precision)
+
+    def train(*args, **kwargs):
+        out = real_train(*args, **kwargs)
+        captured["backend"] = dist.get_backend() if dist.is_initialized() else None
+        captured["state"], captured["trainer"] = out[0], out[2]
+        return out
+
+    code_parallel.local_search = local_search
+    code_parallel.exchange_and_combine = timed(code_parallel.exchange_and_combine, "combine")
+    vqvae_train.VQVAETrainer._update = timed(vqvae_train.VQVAETrainer._update, "step")
+    vqvae_train.VQVAETrainer._reduce_gradients = timed(vqvae_train.VQVAETrainer._reduce_gradients, "reduce")
+    vqvae_train.train_vqvae = train
+    cuda_quantizer.reset_launch_counts()
+    rc = cli.main(argv)
+    if on_card:
+        torch.cuda.synchronize()
+    state, mesh = captured["state"], captured["trainer"].mesh
+    ms = {key: [s.elapsed_time(e) if on_card else 1e3 * (e - s) for s, e in pairs]
+          for key, pairs in spans.items()}
+    named = dict(state.model.named_parameters())
+    record = {
+        "rc": rc, "rank": mesh.data * mesh.n_code + mesh.code, "data": mesh.data, "code": mesh.code,
+        "backend": captured["backend"], "backend_asked": argv[argv.index("--dist_backend") + 1],
+        "device": str(captured["trainer"].device), "updates": state.step,
+        "launches": dict(cuda_quantizer.launches_by_route),
+        "replicated_sha": digest(p for n, p in sorted(named.items()) if n != "codebook"),
+        "codebook_sha": digest([named["codebook"]]), "z_prints": [p.tolist() for p in prints],
+        "step_ms": ms["step"], "reduce_ms": ms["reduce"], "combine_ms": ms["combine"],
+    }
+    with open(out_path, "w") as f:
+        json.dump(record, f)
+    return rc
+
+
+def run_clusters(clusters: dict, work: str, timeout: float = PARALLEL_TIMEOUT_S) -> dict:
+    """Start every rank of every cluster at once (``clusters``: name -> list of
+    each rank's ``train-vqvae`` arguments), each a ``rank_worker`` process
+    logging to ``work``; wait for all. A rank that fails or outlives
+    ``timeout`` stops the phase: every rank is killed and the tails of the
+    logs printed. Returns name -> the ranks' records."""
+    procs = []
+    for name, ranks in clusters.items():
+        for i, argv in enumerate(ranks):
+            out = os.path.join(work, f"{name}_rank{i}.json")
+            log = open(os.path.join(work, f"{name}_rank{i}.log"), "w")
+            procs.append((name, i, out, log, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank-worker", out, *argv],
+                cwd=ROOT, env={**os.environ, "OMP_NUM_THREADS": "1"}, stdout=log,
+                stderr=subprocess.STDOUT)))
+    deadline, failed = time.monotonic() + timeout, []
+    try:
+        for name, i, _out, _log, p in procs:
+            try:
+                if p.wait(timeout=max(1.0, deadline - time.monotonic())) != 0:
+                    failed.append(f"{name} rank {i}: rc {p.returncode}")
+            except subprocess.TimeoutExpired:
+                failed.append(f"{name} rank {i}: still running after {timeout} s")
+    finally:
+        for _name, _i, _out, log, p in procs:
+            p.kill()
+            p.wait()
+            log.close()
+    if failed:
+        for name, i, _out, log, _p in procs:
+            with open(log.name) as f:
+                print(f"[14] --- {name} rank {i} log (tail) ---\n" + "".join(f.readlines()[-25:]))
+        check(False, f"parallel ranks failed: {failed}")
+    records = {}
+    for name, i, out, _log, _p in procs:
+        with open(out) as f:
+            records.setdefault(name, []).append(json.load(f))
+    return records
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def train_argv(world: int, rank: int, port: int, *flags) -> list:
+    return ["train-vqvae", "--distributed", "--coordinator_address", f"127.0.0.1:{port}",
+            "--num_processes", str(world), "--process_id", str(rank),
+            "--data_dir", os.path.join(ROOT, "data"), "--device", DEVICE, *flags]
+
+
+def parallel_phase(smi: str, dataset) -> dict:
+    """Phase 14: the best-value output, the sharded search and combine on one
+    card, and data x codebook parallel training in ranks of their own. The
+    2 x 2 clusters run on NCCL, a card a rank, where there are four cards,
+    and on gloo otherwise (NCCL refuses two ranks on one card). Returns the
+    numbers of the record and each kernel's launches."""
+    from vqvae_tpu_torch.config import TrainConfig, VQVAEConfig
+    from vqvae_tpu_torch.ops import cuda_quantizer
+    from vqvae_tpu_torch.ops.quantizer import best_value_errors, compare_assignments
+    from vqvae_tpu_torch.parallel.code_parallel import combine_shards
+    from vqvae_tpu_torch.pipelines.extract import extract_latents
+    from vqvae_tpu_torch.pipelines.viz import load_model
+    from vqvae_tpu_torch.train.checkpoint import flatten_tree, read_state_tree, save_checkpoint
+    from vqvae_tpu_torch.train.vqvae_train import VQVAETrainer, train_vqvae
+
+    dev = torch.device(DEVICE)
+    backend = "nccl" if torch.cuda.device_count() >= 4 else "gloo"
+    rows = {}
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    # -- 1: the best values against the plain version ----------------------------
+    worst = {}
+    for n, k, d in (MAIN_SHAPE, BENCH_SHAPE) + TPU_TEST_SHAPES + (RAGGED_K_SHAPE,) + FMA_EDGE_SHAPES:
+        z = torch.randn(n, d, device=dev, generator=gen)
+        cb = torch.randn(k, d, device=dev, generator=gen)
+        for mode in MODES:
+            for route in dict.fromkeys((cuda_quantizer.kernel_route(mode, d), "fma")):
+                idx, values = cuda_quantizer.nearest_code_indices(z, cb, mode, route, values=True)
+                same = torch.equal(idx, cuda_quantizer.nearest_code_indices(z, cb, mode, route))
+                err, outside = best_value_errors(z, cb, values, mode)
+                worst[(mode, route)] = max(worst.get((mode, route), 0.0), err)
+                print(f"[14] values N={n} K={k} D={d} {mode:8s} {route}: indices as without values "
+                      f"{same}, largest |value - float64 minimum| {err:.3g}, outside the near-tie "
+                      f"bound {outside}")
+                check(same and outside == 0, f"best values of the {route} kernel in {mode} are wrong")
+    rows["value_err"] = {f"{m}/{r}": e for (m, r), e in worst.items()}
+
+    # -- 2: the codebook in contiguous shards, one card ---------------------------
+    n = MAIN_SHAPE[0]
+    mma_departures = {}
+    for k, n_code in SHARD_SPLITS:
+        z = torch.randn(n, 64, device=dev, generator=gen)
+        cb = torch.randn(k, 64, device=dev, generator=gen)
+        k_local = k // n_code
+        for mode in MODES:
+            for route in dict.fromkeys((cuda_quantizer.kernel_route(mode, 64), "fma")):
+                idx_all, val_all = cuda_quantizer.nearest_code_indices(z, cb, mode, route, values=True)
+                found = [cuda_quantizer.nearest_code_indices(
+                    z, cb[s * k_local:(s + 1) * k_local].contiguous(), mode, route, values=True)
+                    for s in range(n_code)]
+                values = torch.stack([v for _i, v in found])
+                win, _wl, idx = combine_shards(values, torch.stack([i for i, _v in found]), k_local)
+                val = values.gather(0, win[None])[0]
+                bits = torch.equal(idx, idx_all) and torch.equal(val, val_all)
+                mism, near, gap = compare_assignments(z, cb, idx, idx_all, mode)
+                val_diff = int((val != val_all).sum())
+                print(f"[14] K={k} in {n_code} shards, N={n} {mode:8s} {route}: indices and values as "
+                      f"the unsharded call bit for bit {bits}; index mismatches {mism} (near-ties "
+                      f"{near}, largest gap {gap:.3g}), values that differ {val_diff}")
+                if route == "fma":
+                    check(bits, f"the sharded fma search in {mode} departs from the unsharded one")
+                else:
+                    check(mism == near and best_value_errors(z, cb, val, mode)[1] == 0,
+                          f"the sharded mma search in {mode} departs beyond a near-tie")
+                    mma_departures[f"{k}/{n_code}/{mode}"] = [mism, val_diff]
+            dup = cb[:k_local].repeat(n_code, 1)
+            for route in dict.fromkeys((cuda_quantizer.kernel_route(mode, 64), "fma")):
+                found = [cuda_quantizer.nearest_code_indices(z, dup[s * k_local:(s + 1) * k_local].contiguous(),
+                                                             mode, route, values=True)
+                         for s in range(n_code)]
+                _w, _l, idx = combine_shards(torch.stack([v for _i, v in found]),
+                                             torch.stack([i for i, _v in found]), k_local)
+                check(int(idx.max()) < k_local, f"{route} {mode}: a duplicated code left the lowest shard")
+    rows["mma_shard_departures"] = mma_departures
+    print(f"[14] the mma route's departures from itself when sharded (index mismatches, values that "
+          f"differ) by K/n_code/mode: {mma_departures}; a duplicated codebook keeps every index in "
+          f"the lowest shard on both routes")
+
+    # the kernel with and without values at the main shape (a record)
+    z = torch.randn(MAIN_SHAPE[0], MAIN_SHAPE[2], device=dev, generator=gen)
+    cb = torch.randn(MAIN_SHAPE[1], MAIN_SHAPE[2], device=dev, generator=gen)
+    rows["values_ms"] = {}
+    for mode, route in (("highest", "fma"), ("default", "mma")):
+        t = alternate({"without": lambda: cuda_quantizer.nearest_code_indices(z, cb, mode, route),
+                       "with": lambda: cuda_quantizer.nearest_code_indices(z, cb, mode, route, values=True)})
+        rows["values_ms"][route] = t
+        print(f"[14] {route} ({mode}) at {MAIN_SHAPE}: {t['without']:.5f} ms without values, "
+              f"{t['with']:.5f} ms with (CUDA events behind a spin; {smi})")
+
+    # -- 3: 2 x 2 ranks training on the card, against one process ---------------
+    train, _val, x_train_var, _info = dataset
+    work = os.path.join(ROOT, "build", "smoke_parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    vq = VQVAEConfig()
+    trainer = VQVAETrainer(vq, TrainConfig(batch_size=PARALLEL_BATCH), x_train_var, device=DEVICE)
+    start = trainer.init_state()
+    with torch.no_grad():  # a codebook of latents, so that many codes and every shard win rows
+        z_e = start.model.encode(torch.from_numpy(train.data[:64]).to(dev)).reshape(-1, vq.embedding_dim)
+        pick = torch.from_numpy(np.random.default_rng(14).choice(len(z_e), vq.n_embeddings, replace=False))
+        start.model.codebook.copy_(z_e[pick.to(dev)])
+    for name in ("single", "par"):
+        save_checkpoint(os.path.join(work, f"vqvae_{name}_step0.npz"), trainer.state_tree(start), 0,
+                        hyperparameters=vq.to_dict())
+    common = ["--batch_size", str(PARALLEL_BATCH), "--log_interval", "5", "--steps_per_dispatch", "5",
+              "-save", "--resume", "--results_dir", work]
+    cfg1 = TrainConfig(batch_size=PARALLEL_BATCH, n_updates=6, log_interval=5, steps_per_dispatch=5,
+                       save=True, filename="single", results_dir=work)
+    cuda_quantizer.reset_launch_counts()
+    _s1, history1, _t1 = train_vqvae(vq, cfg1, dataset=dataset, resume=True, verbose=False, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = {"one process": dict(cuda_quantizer.launches_by_route)}
+    check(launches["one process"] == {"mma": 0, "fma": 5}, f"one process: {launches['one process']}")
+
+    t0 = time.perf_counter()
+    port = free_port()
+    flags = ["--n_data", "2", "--n_code", "2", "--dist_backend", backend, "--n_updates", "21",
+             "--filename", "par", *common]
+    recs = run_clusters({"2x2": [train_argv(4, r, port, *flags) for r in range(4)]}, work)["2x2"]
+    rows["cluster_2x2_s"] = time.perf_counter() - t0
+    _tree, step, metrics, _hp = read_state_tree(os.path.join(work, "vqvae_par_step20.npz"))
+    check(step == 20 and len(metrics["loss_vals"]) == 20, "the 2 x 2 run did not take 20 updates")
+    deltas, ulps = {}, {}
+    for key in ("loss_vals", "recon_errors", "perplexities"):
+        a, b = np.asarray(metrics[key][:5]), np.asarray(getattr(history1, key))
+        deltas[key] = (np.abs(a - b) / np.abs(b)).tolist()
+        ulps[key] = float(abs(a[0] - b[0]) / np.spacing(np.float32(b[0])))
+    print(f"[14] 2 x 2 {backend} ranks, 20 updates at global batch {PARALLEL_BATCH} in "
+          f"{rows['cluster_2x2_s']:.3f} s (4 processes, host clock); first 5 against one process, "
+          f"relative differences by update: {deltas}; update 1 apart by {ulps} ulps; loss "
+          f"{metrics['loss_vals'][0]:.6f} -> {metrics['loss_vals'][-1]:.6f}, perplexity "
+          f"{metrics['perplexities'][0]:.3f} -> {metrics['perplexities'][-1]:.3f}")
+    rows["update1_ulps"] = ulps
+    rows["updates2_5_rel_diff"] = {key: max(d[1:]) for key, d in deltas.items()}
+    # Update 1 starts from the same weights and searches bit-identical latents
+    # (below: encoded whole and as two halves they agree), so its counts and
+    # perplexity are one process's bits; its losses are the mean of two
+    # ranks' means of 128 images, one process's a mean of 256, summed in
+    # another order: at most 2 ulps apart. From update 2 on the ranks' summed
+    # gradients (each rank's mean, then the all-reduce; index_add_ adds with
+    # atomics) have parted the weights in their last bits, and a latent near
+    # a tie between two codes can take the other one. One such row moves the
+    # perplexity by at most ln(N) / N of itself (5.9e-4 at N = 16,384): the
+    # bound allows three a step.
+    with torch.no_grad():
+        x = torch.from_numpy(train.data[:PARALLEL_BATCH]).to(dev)
+        z_whole = start.model.encode(x)
+        z_halves = torch.cat([start.model.encode(half) for half in x.chunk(2)])
+    z_apart = int((z_whole != z_halves).sum())
+    rows["latents_whole_vs_halves"] = z_apart
+    print(f"[14] the start state's latents of {PARALLEL_BATCH} images encoded at once and as two "
+          f"halves of {PARALLEL_BATCH // 2}: {z_apart} of {z_whole.numel()} values differ")
+    later = rows["updates2_5_rel_diff"]
+    check(ulps["perplexities"] == 0 and max(ulps["loss_vals"], ulps["recon_errors"]) <= 2,
+          f"the 2 x 2 run's first update departs from one process: {ulps} ulps")
+    check(max(later["loss_vals"], later["recon_errors"]) <= 1e-6
+          and later["perplexities"] <= 3 * math.log(64 * PARALLEL_BATCH) / (64 * PARALLEL_BATCH),
+          f"the 2 x 2 run departs from one process in updates 2-5: {later}")
+    par5 = flatten_tree(read_state_tree(os.path.join(work, "vqvae_par_step5.npz"))[0])
+    one5 = flatten_tree(read_state_tree(os.path.join(work, "vqvae_single_step5.npz"))[0])
+    param_diff = max(float(np.abs(par5[k] - one5[k]).max()) for k in one5 if ".params" in k)
+    rows["params_diff_after_5"] = param_diff
+    print(f"[14] parameters after 5 updates, 2 x 2 against one process: largest difference "
+          f"{param_diff:.3g} (bound 6e-4)")
+    check(set(par5) == set(one5) and param_diff <= 6e-4, "2 x 2 parameters depart")
+    by_rank = sorted(recs, key=lambda r: r["rank"])
+    check([(r["data"], r["code"]) for r in by_rank] == [(0, 0), (0, 1), (1, 0), (1, 1)],
+          "the ranks' mesh coordinates are not row-major")
+    check(len({r["replicated_sha"] for r in by_rank}) == 1,
+          f"replicated weights differ between ranks: {[r['replicated_sha'] for r in by_rank]}")
+    check(all(r["launches"] == {"mma": 0, "fma": r["updates"]} and r["updates"] == 20 for r in by_rank),
+          f"each rank should launch the fma kernel once an update: {[r['launches'] for r in by_rank]}")
+    for c in (0, 1):  # the two ranks holding one codebook shard hold the same bits
+        check(by_rank[c]["codebook_sha"] == by_rank[2 + c]["codebook_sha"],
+              f"codebook shard {c} differs between its data ranks")
+    same_z = all(by_rank[2 * d]["z_prints"] == by_rank[2 * d + 1]["z_prints"] for d in (0, 1))
+    print(f"[14] after 20 updates: replicated weights bit-identical on all 4 ranks "
+          f"({by_rank[0]['replicated_sha']}); each codebook shard the same on its 2 data ranks; "
+          f"ranks of a data row searched with bit-identical latents in every update: {same_z}; "
+          f"launches {[r['launches'] for r in by_rank]}")
+    check(same_z, "two ranks of a data row searched with different latents")
+    timing, cards = {}, len({r["device"] for r in by_rank})
+    for r in by_rank:
+        t = {key: float(np.median(r[key][1:])) for key in ("step_ms", "reduce_ms", "combine_ms")}
+        timing[r["rank"]] = t
+        print(f"[14] rank {r['rank']} ({r['data']}, {r['code']}) on {r['device']}, "
+              f"{r['backend']}: median of updates 2-20: step {t['step_ms']:.3f} ms, gradient "
+              f"all-reduce {t['reduce_ms']:.3f} ms, combine {t['combine_ms']:.3f} ms (CUDA events; "
+              f"4 ranks on {cards} card(s){': no scaling figure' if cards == 1 else ''}; {smi})")
+    rows["rank_ms"] = timing
+    model20, _m, _hp = load_model(os.path.join(work, "vqvae_par_step20.npz"), DEVICE)
+    codes = extract_latents(model20, train.data[:2560], batch_size=256)
+    check(model20.codebook.shape == (512, 64) and codes.shape == (2560, 64)
+          and 0 <= codes.min() <= codes.max() < 512, "the 2 x 2 checkpoint does not reload")
+    print(f"[14] rank 0's checkpoint of step 20 through load_model and extract_latents: codes "
+          f"{codes.shape}, {len(np.unique(codes))} distinct")
+    launches["2x2"] = [r["launches"] for r in by_rank]
+
+    # bf16 / default (mma) and EMA in 2 x 2, one NCCL rank (two on two cards), at once
+    def fresh(name, updates=10):
+        return ["--batch_size", str(PARALLEL_BATCH), "--log_interval", "10", "--steps_per_dispatch", "5",
+                "--n_updates", str(updates), "-save", "--filename", name, "--results_dir", work]
+
+    p_bf16, p_ema, p_nccl = free_port(), free_port(), free_port()
+    clusters = {
+        "bf16": [train_argv(4, r, p_bf16, "--n_data", "2", "--n_code", "2", "--dist_backend", backend,
+                            "--compute_dtype", "bfloat16", "--quantizer_precision", "default",
+                            *fresh("bf16")) for r in range(4)],
+        "ema": [train_argv(4, r, p_ema, "--n_data", "2", "--n_code", "2", "--dist_backend", backend,
+                           "--ema_codebook", *fresh("ema")) for r in range(4)],
+        "nccl": [train_argv(1, 0, p_nccl, "--dist_backend", "nccl", *fresh("nccl", 5))],
+    }
+    two_cards = torch.cuda.device_count() >= 2
+    if two_cards:
+        p_two = free_port()
+        clusters["nccl2"] = [train_argv(2, r, p_two, "--n_data", "1", "--n_code", "2", "--dist_backend",
+                                        "nccl", *fresh("nccl2")) for r in range(2)]
+    t0 = time.perf_counter()
+    recs = run_clusters(clusters, work)
+    rows["clusters_s"] = time.perf_counter() - t0
+    for name, want in (("bf16", {"mma": 10, "fma": 0}), ("ema", {"mma": 0, "fma": 10}),
+                       ("nccl", {"mma": 0, "fma": 5})):
+        got = [r["launches"] for r in recs[name]]
+        check(all(g == want for g in got), f"{name}: launches {got}, expected {want} a rank")
+        launches[name] = got
+    check(all(r["backend"] == r["backend_asked"] for runs in recs.values() for r in runs),
+          "a run did not use the backend it asked for")
+    check(len(recs["nccl"][0]["reduce_ms"]) == 5, "the NCCL rank did not all-reduce every update")
+    for name in ("bf16", "ema", "nccl") + (("nccl2",) if two_cards else ()):
+        last = 4 if name == "nccl" else 9
+        tree, step, m, _hp = read_state_tree(os.path.join(work, f"vqvae_{name}_step{last}.npz"))
+        check(step == last and np.isfinite(m["loss_vals"]).all() and np.isfinite(m["perplexities"]).all(),
+              f"{name}: a metric is not finite or the run stopped early")
+        print(f"[14] {name}: {last + 1} updates, loss {m['loss_vals'][0]:.6f} -> {m['loss_vals'][-1]:.6f}, "
+              f"launches {[r['launches'] for r in recs[name]]}, backend {recs[name][0]['backend']}")
+        if name == "ema":
+            counts = tree["ema_counts"]
+            want_sum = 64 * PARALLEL_BATCH * (1.0 - 0.99 ** 10)
+            rows["ema_counts_sum"] = float(counts.sum())
+            print(f"[14] ema: counts over both shards sum to {counts.sum():.3f} "
+                  f"({64 * PARALLEL_BATCH} * (1 - 0.99^10) = {want_sum:.3f}), shape {counts.shape}")
+            check(counts.shape == (512,) and abs(counts.sum() / want_sum - 1.0) <= 1e-4,
+                  "the sharded EMA counts do not follow the decay")
+    if two_cards:
+        launches["nccl2"] = [r["launches"] for r in recs["nccl2"]]
+        print(f"nccl_two_ranks: run on 2 cards, launches {launches['nccl2']}")
+    else:
+        print("nccl_two_ranks: not run, 1 card")
+    rows["launches"] = launches
+    print(f"[14] bf16, EMA and NCCL runs together: {rows['clusters_s']:.3f} s (host clock)")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1110,7 +1528,14 @@ def main() -> int:
     t_train_prior = time.perf_counter()
     train_rows = prior_training_phase(smi, codes)
     print(f"[13] phase 13 took {time.perf_counter() - t_train_prior:.1f} s; {json.dumps(train_rows)}")
+    t_parallel = time.perf_counter()
+    parallel_rows = parallel_phase(smi, dataset)
+    print(f"[14] phase 14 took {time.perf_counter() - t_parallel:.1f} s; {json.dumps(parallel_rows)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
+
+    def parallel_launches(route):  # phase 14's main-path launches, every rank's
+        return sum(counts[route] for runs in parallel_rows["launches"].values()
+                   for counts in (runs if isinstance(runs, list) else [runs]))
 
     def entry(name, source, route, mode, launches):
         row = main_rows[mode]
@@ -1124,9 +1549,9 @@ def main() -> int:
     # its launches summed over those paths, each counted from zero
     kernels = [
         entry("nearest_code_mma", "vqvae_tpu_torch/csrc/nearest_code_mma.cu", "mma", "default",
-              launches_main["mma"] + launches_bf16["mma"]),
+              launches_main["mma"] + launches_bf16["mma"] + parallel_launches("mma")),
         entry("nearest_code", "vqvae_tpu_torch/csrc/nearest_code.cu", "fma", "highest",
-              launches_rec["fma"] + launches_fp32["fma"] + launches_ema["fma"]),
+              launches_rec["fma"] + launches_fp32["fma"] + launches_ema["fma"] + parallel_launches("fma")),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path was never launched")
     print(json.dumps({"kernels": kernels}))
@@ -1136,4 +1561,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--rank-worker":
+        sys.exit(rank_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

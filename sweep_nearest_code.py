@@ -115,10 +115,10 @@ def compile_all(jobs: dict, tmp: str) -> dict:
     for key, path in paths.items():
         lib = ctypes.CDLL(path)
         if hasattr(lib, "vq_nearest_code_mma"):
-            lib.vq_nearest_code_mma.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+            lib.vq_nearest_code_mma.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
             lib.vq_nearest_code_mma.restype = i32
         else:
-            lib.vq_nearest_code.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+            lib.vq_nearest_code.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
             lib.vq_nearest_code.restype = i32
         libs[key] = (lib, logs[key])
     return libs
@@ -145,7 +145,7 @@ def search_fma(lib, z: torch.Tensor, cb: torch.Tensor, mode: str) -> torch.Tenso
     """One call of a shape's CUDA-core library, as ``nearest_code_indices`` makes it."""
     (n, d), k = z.shape, cb.shape[0]
     idx = torch.empty((n,), dtype=torch.int32, device=z.device)
-    err = lib.vq_nearest_code(z.data_ptr(), cb.data_ptr(), idx.data_ptr(), n, k, d,
+    err = lib.vq_nearest_code(z.data_ptr(), cb.data_ptr(), idx.data_ptr(), None, n, k, d,
                               cuda_quantizer.MODES[mode], torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"launch failed with CUDA error {err}")
@@ -158,7 +158,8 @@ def search(lib, z: torch.Tensor, cb: torch.Tensor, mode: str) -> torch.Tensor:
     idx = torch.empty((n,), dtype=torch.int32, device=z.device)
     scratch = torch.empty((cuda_quantizer.mma_scratch_bytes(k, d, mode),), dtype=torch.uint8,
                           device=z.device)
-    err = lib.vq_nearest_code_mma(z.data_ptr(), cb.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
+    err = lib.vq_nearest_code_mma(z.data_ptr(), cb.data_ptr(), idx.data_ptr(), None,
+                                  scratch.data_ptr(),
                                   n, k, d, cuda_quantizer.MODES[mode],
                                   torch.cuda.current_stream().cuda_stream)
     if err != 0:

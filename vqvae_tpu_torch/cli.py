@@ -7,7 +7,10 @@
     python -m vqvae_tpu_torch.cli serve --prior-checkpoint ... [--vqvae-checkpoint ...] [--device cpu]
 
 Flag names and defaults are the JAX package's (and the reference's,
-main.py:16-30, gated_pixelcnn.py:27-42), without the mesh flags.
+main.py:16-30, gated_pixelcnn.py:27-42). ``train-vqvae`` takes the JAX
+command's mesh flags (``--n_data``, ``--n_code``, ``--distributed``,
+``--coordinator_address``, ``--num_processes``, ``--process_id``) and
+``--dist_backend``; it runs one process a rank (``parallel/distributed.py``).
 ``extract-latents``, ``sample`` and ``serve`` rebuild each model from its
 checkpoint's stored hyperparameters; for a file that stores none they take
 the model flags, which must then be given (the command fails and names
@@ -81,6 +84,36 @@ def _add_vqvae_flags(p: argparse.ArgumentParser) -> None:
                         "dispatches on the tensor's device only")
 
 
+def _add_mesh_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--n_data", type=int, default=None,
+                   help="ranks on the data axis (default: world size // n_code)")
+    p.add_argument("--n_code", type=int, default=1,
+                   help="ranks that share the codebook row-wise")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a torch.distributed group: one process a rank")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of rank 0 (default: the env:// variables of a launcher)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                   help="default: nccl on CUDA ranks, gloo on the CPU; gloo where ranks "
+                        "share one card")
+
+
+def _mesh_cfg(args):
+    from vqvae_tpu_torch.config import MeshConfig
+
+    return MeshConfig(
+        n_data=args.n_data,
+        n_code=args.n_code,
+        distributed=args.distributed,
+        coordinator_address=args.coordinator_address,
+        num_processes=args.num_processes,
+        process_id=args.process_id,
+        backend=args.dist_backend,
+    )
+
+
 def _add_prior_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--img_dim", type=int, default=8, action=_ModelFlag)
     p.add_argument("--n_layers", type=int, default=15, action=_ModelFlag)
@@ -129,6 +162,11 @@ def _prior_flags_cfg(args):
 
 def cmd_train_vqvae(args) -> int:
     from vqvae_tpu_torch.config import TrainConfig, VQVAEConfig
+    from vqvae_tpu_torch.parallel.distributed import (
+        is_primary_host,
+        maybe_initialize_distributed,
+        shutdown_distributed,
+    )
     from vqvae_tpu_torch.train.vqvae_train import train_vqvae
 
     vq_cfg = VQVAEConfig(
@@ -160,10 +198,15 @@ def cmd_train_vqvae(args) -> int:
         steps_per_dispatch=args.steps_per_dispatch,
         amsgrad_impl=args.amsgrad_impl,
     )
-    if args.save:
-        name = args.filename or "<timestamp>"
-        print(f"Results will be saved in ./{args.results_dir}/vqvae_{name}_step*.npz")
-    train_vqvae(vq_cfg, train_cfg, resume=args.resume, device=args.device)
+    mesh_cfg = _mesh_cfg(args)
+    device = maybe_initialize_distributed(mesh_cfg, args.device)
+    try:
+        if args.save and is_primary_host():
+            name = args.filename or "<timestamp>"
+            print(f"Results will be saved in ./{args.results_dir}/vqvae_{name}_step*.npz")
+        train_vqvae(vq_cfg, train_cfg, mesh_cfg, resume=args.resume, device=device)
+    finally:
+        shutdown_distributed()
     return 0
 
 
@@ -285,6 +328,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     tv = sub.add_parser("train-vqvae", help="train the VQ-VAE")
     _add_vqvae_flags(tv)
+    _add_mesh_flags(tv)
     tv.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     tv.set_defaults(fn=cmd_train_vqvae)
 

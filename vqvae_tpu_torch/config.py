@@ -3,8 +3,7 @@
 The port keeps its own copy of ``VQVAEConfig`` with the same fields and
 defaults, so hyperparameter dicts stored in checkpoints round-trip between
 the two packages unchanged, and of ``TrainConfig``. Defaults are the
-reference's (main.py:16-30), and of ``PixelCNNConfig``. The mesh config comes
-with the slice that uses it.
+reference's (main.py:16-30), of ``PixelCNNConfig`` and of ``MeshConfig``.
 """
 
 from __future__ import annotations
@@ -119,4 +118,41 @@ class TrainConfig(_DictMixin):
     device_data_max_bytes: int = 2_000_000_000
 
 
-__all__ = ["PixelCNNConfig", "VQVAEConfig", "TrainConfig"]
+@dataclass(frozen=True)
+class MeshConfig(_DictMixin):
+    """Data and codebook parallelism (``parallel/``): one process a rank, one
+    device a rank, ``n_data x n_code`` ranks.
+
+    The batch is split over ``data``; the conv weights are replicated; with
+    ``n_code > 1`` the (K, D) codebook, its optimizer moments and the EMA
+    statistics are row-sharded over ``code``. The fields are the JAX
+    package's, plus ``backend``.
+    """
+
+    # The JAX package names its mesh axes here; the port's process groups
+    # are always "data" and "code", and these two fields exist only so that
+    # a JAX MeshConfig's dict loads. Another name is refused.
+    data_axis: str = "data"
+    # None => world size // n_code.
+    n_data: Optional[int] = None
+    code_axis: str = "code"
+    n_code: int = 1
+    # torch.distributed.init_process_group: off by default. Where the three
+    # below are None, a launcher's env:// variables (MASTER_ADDR,
+    # MASTER_PORT, WORLD_SIZE, RANK) are read instead.
+    distributed: bool = False
+    coordinator_address: Optional[str] = None   # "host:port"
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    # Collective backend. None: "nccl" when the rank's device is CUDA, else
+    # "gloo". "gloo" on CUDA ranks where several share one card, which NCCL
+    # refuses.
+    backend: Optional[str] = None
+
+    def __post_init__(self):
+        if (self.data_axis, self.code_axis) != ("data", "code"):
+            raise ValueError(f"the port's mesh axes are 'data' and 'code', got "
+                             f"{self.data_axis!r} and {self.code_axis!r}")
+
+
+__all__ = ["MeshConfig", "PixelCNNConfig", "VQVAEConfig", "TrainConfig"]

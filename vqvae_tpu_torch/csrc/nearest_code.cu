@@ -8,6 +8,10 @@
 // change the argmin). The first minimum wins, as in torch.argmin. The
 // (N, K) score matrix never reaches device memory. The row gather
 // z_q = codebook[idx] stays outside, an exact index_select, as in JAX.
+// Where the caller passes a `best` array it also gets each row's winning
+// score, the float the kernel compared (what a codebook-parallel combine
+// holds against the other shards' minima); a row that never took a score
+// keeps (+inf, code 0).
 //
 // Precision modes (JAX pallas_quantizer.py::_dot_zt_et):
 //   highest  full fp32 FMA, no TF32 and no split: the mode for exact scores.
@@ -304,7 +308,8 @@ constexpr int kMaxSmemBytes = 232448;  // what a block may have on sm_90 (227 KB
 template <int MODE>
 __global__ void __launch_bounds__(kThreads)
 nearest_code_kernel(const float* __restrict__ z, const float* __restrict__ cb,
-                    int32_t* __restrict__ idx, int n, int k, int d, bool vec, bool resident) {
+                    int32_t* __restrict__ idx, float* __restrict__ best, int n, int k, int d,
+                    bool vec, bool resident) {
   using L = Layout<MODE>;
   using ZS = Staging<kBlockRows>;
   using ES = Staging<kTileCodes>;
@@ -492,12 +497,15 @@ nearest_code_kernel(const float* __restrict__ z, const float* __restrict__ cb,
       }
     }
     const int r = kRowGroupStride * (i / 4) + 4 * ty + (i % 4);
-    if (tx == 0 && r < rows_left) idx[(size_t)row0 + r] = bi;
+    if (tx == 0 && r < rows_left) {
+      idx[(size_t)row0 + r] = bi;
+      if (best != nullptr) best[(size_t)row0 + r] = v;
+    }
   }
 }
 
 template <int MODE>
-cudaError_t launch(const float* z, const float* cb, int32_t* idx, int n, int k, int d,
+cudaError_t launch(const float* z, const float* cb, int32_t* idx, float* best, int n, int k, int d,
                    cudaStream_t stream) {
   using L = Layout<MODE>;
   // 16-byte loads need whole pieces in every row and aligned first rows.
@@ -515,7 +523,7 @@ cudaError_t launch(const float* z, const float* cb, int32_t* idx, int n, int k, 
     if (err != cudaSuccess) return err;
   }
   const int blocks = (n - 1) / kBlockRows + 1;
-  kernel<<<blocks, kThreads, smem, stream>>>(z, cb, idx, n, k, d, vec, resident);
+  kernel<<<blocks, kThreads, smem, stream>>>(z, cb, idx, best, n, k, d, vec, resident);
   return cudaGetLastError();
 }
 
@@ -523,20 +531,21 @@ cudaError_t launch(const float* z, const float* cb, int32_t* idx, int n, int k, 
 
 extern "C" {
 
-// z (n, d) and cb (k, d) contiguous fp32, idx (n,) int32, all on the current
-// device; mode 0 = highest, 1 = high, 2 = default. Returns the CUDA error code
-// of the launch (0 = success).
-int vq_nearest_code(const void* z, const void* cb, void* idx, int n, int k, int d,
+// z (n, d) and cb (k, d) contiguous fp32, idx (n,) int32, best (n,) fp32 or
+// null, all on the current device; mode 0 = highest, 1 = high, 2 = default.
+// Returns the CUDA error code of the launch (0 = success).
+int vq_nearest_code(const void* z, const void* cb, void* idx, void* best, int n, int k, int d,
                     int mode, void* stream) {
   const float* zf = static_cast<const float*>(z);
   const float* cf = static_cast<const float*>(cb);
   int32_t* out = static_cast<int32_t*>(idx);
+  float* bv = static_cast<float*>(best);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || k <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   switch (mode) {
-    case kHighest: return (int)launch<kHighest>(zf, cf, out, n, k, d, s);
-    case kHigh: return (int)launch<kHigh>(zf, cf, out, n, k, d, s);
-    case kDefault: return (int)launch<kDefault>(zf, cf, out, n, k, d, s);
+    case kHighest: return (int)launch<kHighest>(zf, cf, out, bv, n, k, d, s);
+    case kHigh: return (int)launch<kHigh>(zf, cf, out, bv, n, k, d, s);
+    case kDefault: return (int)launch<kDefault>(zf, cf, out, bv, n, k, d, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

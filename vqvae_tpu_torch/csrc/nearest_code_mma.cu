@@ -7,6 +7,9 @@
 // codebook (K, D) with the least score ||e_k||^2 - 2 z_n . e_k, the first
 // minimum winning as in torch.argmin. The (N, K) scores never reach device
 // memory; the row gather z_q = codebook[idx] stays outside, as in JAX.
+// Where the caller passes a `best` array it also gets each row's winning
+// score, the float the search compared (for a codebook-parallel combine);
+// a row that never took a score keeps (+inf, code 0).
 //
 // A call is two kernels on the caller's stream.
 //
@@ -186,8 +189,8 @@ template <int DSTEPS, bool HIGH>
 __global__ void __launch_bounds__(kThreads)
 nearest_code_mma_kernel(const float* __restrict__ z, const __nv_bfloat16* __restrict__ cb_hi,
                         const __nv_bfloat16* __restrict__ cb_lo,
-                        const float* __restrict__ e_sq, int32_t* __restrict__ idx, int n,
-                        int k) {
+                        const float* __restrict__ e_sq, int32_t* __restrict__ idx,
+                        float* __restrict__ best, int n, int k) {
   using L = Layout<DSTEPS, HIGH>;
   constexpr int kDepth = L::kDepth;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -378,7 +381,10 @@ nearest_code_mma_kernel(const float* __restrict__ z, const __nv_bfloat16* __rest
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = row_base + 16 * m + g + 8 * h;
-        if (t == 0 && row < n) idx[row] = best_i[m][h];
+        if (t == 0 && row < n) {
+          idx[row] = best_i[m][h];
+          if (best != nullptr) best[row] = best_v[m][h];
+        }
       }
     }
   } else {
@@ -412,7 +418,10 @@ nearest_code_mma_kernel(const float* __restrict__ z, const __nv_bfloat16* __rest
         }
       }
       const int row = blockIdx.x * kBlockRows + r;
-      if (row < n) idx[row] = bi;
+      if (row < n) {
+        idx[row] = bi;
+        if (best != nullptr) best[row] = v;
+      }
     }
   }
 }
@@ -423,8 +432,8 @@ size_t esq_bytes(int k) { return sizeof(float) * (size_t)((k + 3) / 4 * 4); }
 
 template <int DSTEPS, bool HIGH>
 cudaError_t launch_search(const float* z, const __nv_bfloat16* cb_hi,
-                          const __nv_bfloat16* cb_lo, const float* e_sq, int32_t* idx, int n,
-                          int k, cudaStream_t stream) {
+                          const __nv_bfloat16* cb_lo, const float* e_sq, int32_t* idx,
+                          float* best, int n, int k, cudaStream_t stream) {
   auto kernel = nearest_code_mma_kernel<DSTEPS, HIGH>;
   const int smem = 2 * Layout<DSTEPS, HIGH>::kBufferBytes;
   if (smem > 48 * 1024) {
@@ -433,13 +442,13 @@ cudaError_t launch_search(const float* z, const __nv_bfloat16* cb_hi,
     if (err != cudaSuccess) return err;
   }
   kernel<<<(n + kBlockRows - 1) / kBlockRows, kThreads, smem, stream>>>(z, cb_hi, cb_lo, e_sq,
-                                                                       idx, n, k);
+                                                                       idx, best, n, k);
   return cudaGetLastError();
 }
 
 template <bool HIGH>
-cudaError_t run(const float* z, const float* cb, int32_t* idx, unsigned char* scratch, int n,
-                int k, int d, cudaStream_t stream) {
+cudaError_t run(const float* z, const float* cb, int32_t* idx, float* best, unsigned char* scratch,
+                int n, int k, int d, cudaStream_t stream) {
   float* e_sq = reinterpret_cast<float*>(scratch);
   __nv_bfloat16* cb_hi = reinterpret_cast<__nv_bfloat16*>(scratch + esq_bytes(k));
   __nv_bfloat16* cb_lo = cb_hi + (size_t)k * d;  // read only when HIGH
@@ -450,7 +459,7 @@ cudaError_t run(const float* z, const float* cb, int32_t* idx, unsigned char* sc
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 #define VQ_DEPTH_CASE(S) \
-  case S: return launch_search<S, HIGH>(z, cb_hi, cb_lo, e_sq, idx, n, k, stream);
+  case S: return launch_search<S, HIGH>(z, cb_hi, cb_lo, e_sq, idx, best, n, k, stream);
   switch (d / 16) {
     VQ_DEPTH_CASE(1) VQ_DEPTH_CASE(2) VQ_DEPTH_CASE(3) VQ_DEPTH_CASE(4)
     VQ_DEPTH_CASE(5) VQ_DEPTH_CASE(6) VQ_DEPTH_CASE(7) VQ_DEPTH_CASE(8)
@@ -463,25 +472,27 @@ cudaError_t run(const float* z, const float* cb, int32_t* idx, unsigned char* sc
 
 extern "C" {
 
-// z (n, d) and cb (k, d) contiguous fp32, idx (n,) int32, scratch of
+// z (n, d) and cb (k, d) contiguous fp32, idx (n,) int32, best (n,) fp32 or
+// null, scratch of
 // 4 * ceil4(k) + 2 * k * d * (2 if mode == 1 else 1) bytes aligned to 16, all
 // on the current device; d a multiple of 16 up to 128; mode 1 = high,
 // 2 = default.
 // Launches the prepare and the search kernel on `stream` and returns the CUDA
 // error code of the first launch that failed (0 = success).
-int vq_nearest_code_mma(const void* z, const void* cb, void* idx, void* scratch, int n, int k,
-                        int d, int mode, void* stream) {
+int vq_nearest_code_mma(const void* z, const void* cb, void* idx, void* best, void* scratch,
+                        int n, int k, int d, int mode, void* stream) {
   const float* zf = static_cast<const float*>(z);
   const float* cf = static_cast<const float*>(cb);
   int32_t* out = static_cast<int32_t*>(idx);
+  float* bv = static_cast<float*>(best);
   unsigned char* sc = static_cast<unsigned char*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || k <= 0 || d < 16 || d % 16 != 0 || d > 16 * kMaxDepthSteps) {
     return (int)cudaErrorInvalidValue;
   }
   switch (mode) {
-    case kHigh: return (int)run<true>(zf, cf, out, sc, n, k, d, s);
-    case kDefault: return (int)run<false>(zf, cf, out, sc, n, k, d, s);
+    case kHigh: return (int)run<true>(zf, cf, out, bv, sc, n, k, d, s);
+    case kDefault: return (int)run<false>(zf, cf, out, bv, sc, n, k, d, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -30,6 +30,14 @@ first NaN, and its Pallas kernel skips the whole code tile whose minimum is
 NaN (``pallas_quantizer.py:123``). Such scores arise only in a run that has
 already diverged; ``tests/test_torch_cuda_kernel.py`` pins the rule.
 
+Best values. On request (``nearest_code_indices(..., values=True)``) either
+kernel also writes each row's winning score, the float it compared:
+||e||^2 - 2 z.e in the mode's arithmetic, +inf for a row that never took a
+score. A codebook-parallel combine (``parallel/code_parallel.py``) holds
+these against the other shards' minima; a score recomputed from the gathered
+row would sum in another order and could flip a tie across shards. Without
+the request the kernels get a null pointer and do what they did before.
+
 ``launches`` counts calls that launched a kernel and ``launches_by_route``
 splits it by route, so a run can show that its main path went through a
 kernel; only ``nearest_code_indices`` adds to them (one per call, also where
@@ -155,9 +163,9 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.vq_nearest_code.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.vq_nearest_code.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.vq_nearest_code.restype = i32
-        lib.vq_nearest_code_mma.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.vq_nearest_code_mma.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.vq_nearest_code_mma.restype = i32
         lib.vq_empty_kernel.argtypes = [ptr]
         lib.vq_empty_kernel.restype = i32
@@ -245,9 +253,10 @@ def _raise_on(err: int, lib, what: str) -> None:
 
 def nearest_code_indices(
     z_flat: torch.Tensor, codebook: torch.Tensor, precision: str = "highest",
-    route: Optional[str] = None,
-) -> torch.Tensor:
-    """Launch a kernel: (N, D), (K, D) fp32 CUDA -> (N,) int32 nearest-code indices.
+    route: Optional[str] = None, values: bool = False,
+):
+    """Launch a kernel: (N, D), (K, D) fp32 CUDA -> (N,) int32 nearest-code indices,
+    or with ``values`` (indices, (N,) fp32 winning scores).
 
     ``route`` None takes ``kernel_route(precision, D)``; an explicit route that
     the mode or the depth does not allow raises ``ValueError``.
@@ -260,8 +269,10 @@ def nearest_code_indices(
     if route == "mma" and z_flat.data_ptr() % 8:
         raise ValueError("the mma route reads z_flat in 8-byte pairs: its storage is misaligned")
     idx = torch.empty((n,), dtype=torch.int32, device=z_flat.device)
+    best = torch.empty((n,), dtype=torch.float32, device=z_flat.device) if values else None
     if n == 0:
-        return idx
+        return (idx, best) if values else idx
+    best_ptr = best.data_ptr() if values else None
     lib = _library()
     mode = MODES[precision]
     with torch.cuda.device(z_flat.device):
@@ -271,17 +282,18 @@ def nearest_code_indices(
                 (mma_scratch_bytes(k, d, precision),), dtype=torch.uint8, device=z_flat.device,
             )
             err = lib.vq_nearest_code_mma(
-                z_flat.data_ptr(), codebook.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
-                n, k, d, mode, stream,
+                z_flat.data_ptr(), codebook.data_ptr(), idx.data_ptr(), best_ptr,
+                scratch.data_ptr(), n, k, d, mode, stream,
             )
         else:
             err = lib.vq_nearest_code(
-                z_flat.data_ptr(), codebook.data_ptr(), idx.data_ptr(), n, k, d, mode, stream,
+                z_flat.data_ptr(), codebook.data_ptr(), idx.data_ptr(), best_ptr, n, k, d, mode,
+                stream,
             )
     _raise_on(err, lib, f"nearest_code {route} kernel")
     launches += 1
     launches_by_route[route] += 1
-    return idx
+    return (idx, best) if values else idx
 
 
 def nearest_code_cuda(

@@ -21,7 +21,7 @@ package's ``_auto_impl`` thresholds (TPU timings) are not carried over.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -68,6 +68,22 @@ def code_scores(
     return e_sq - 2.0 * prods
 
 
+def nearest_code_values_torch(
+    z_flat: torch.Tensor, codebook: torch.Tensor, precision: str = "highest"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the search with its best values: (N, D), (K, D) ->
+    (indices (N,) int32, each row's winning score (N,) fp32), the counterpart
+    of ``cuda_quantizer.nearest_code_indices(..., values=True)``.
+
+    ``torch.argmin`` returns the first minimum, the tie rule of the kernels,
+    and the first NaN (the NaN rule of this plain version, see
+    ``ops/cuda_quantizer.py``); the value is the score it picked.
+    """
+    scores = code_scores(z_flat, codebook, precision)
+    indices = scores.argmin(1)
+    return indices.to(torch.int32), scores.gather(1, indices[:, None])[:, 0]
+
+
 def nearest_code_torch(
     z_flat: torch.Tensor, codebook: torch.Tensor, precision: str = "highest"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -75,8 +91,42 @@ def nearest_code_torch(
 
     ``torch.argmin`` returns the first minimum, the tie rule of the kernel.
     """
-    indices = code_scores(z_flat, codebook, precision).argmin(1).to(torch.int32)
+    indices, _values = nearest_code_values_torch(z_flat, codebook, precision)
     return codebook.index_select(0, indices), indices
+
+
+def _mode_terms(z: torch.Tensor, cb: torch.Tensor, precision: str) -> list:
+    """The (z, e) operand pairs whose products the mode's arithmetic sums."""
+    if precision == "high":
+        z_hi, cb_hi = _bf16(z), _bf16(cb)
+        return [(z_hi, cb_hi), (z_hi, _bf16(cb - cb_hi)), (_bf16(z - z_hi), cb_hi)]
+    if precision == "default":
+        return [(_bf16(z), _bf16(cb))]
+    return [(z, cb)]
+
+
+def best_value_errors(
+    z_flat: torch.Tensor,
+    codebook: torch.Tensor,
+    values: torch.Tensor,
+    precision: str = "highest",
+    rel_tol: float = 1e-5,
+) -> Tuple[float, int]:
+    """How far reported best values lie from each row's least score computed
+    in float64 from the operands the mode's arithmetic sees.
+
+    A value summed in another order may differ from that minimum by the
+    near-tie bound of ``compare_assignments``, ``rel_tol * (||z||^2 + max
+    ||e||^2)``, and no more. Returns (largest absolute difference, rows
+    outside the bound).
+    """
+    z, cb = z_flat.float(), codebook.float()
+    e_sq = cb.double().pow(2).sum(1)
+    dots = sum(zt.double() @ ct.double().T for zt, ct in _mode_terms(z, cb, precision))
+    best = (e_sq[None, :] - 2.0 * dots).min(1).values
+    err = (values.double() - best).abs()
+    tol = rel_tol * (z.double().pow(2).sum(1) + e_sq.max())
+    return float(err.max()), int((err > tol).sum())
 
 
 def compare_assignments(
@@ -103,13 +153,7 @@ def compare_assignments(
         return 0, 0, 0.0
     z, cb = z_flat.float(), codebook.float()
     e_sq = cb.double().pow(2).sum(1)
-    if precision == "high":
-        z_hi, cb_hi = _bf16(z), _bf16(cb)
-        terms = [(z_hi, cb_hi), (z_hi, _bf16(cb - cb_hi)), (_bf16(z - z_hi), cb_hi)]
-    elif precision == "default":
-        terms = [(_bf16(z), _bf16(cb))]
-    else:
-        terms = [(z, cb)]
+    terms = _mode_terms(z, cb, precision)
 
     def score(idx):
         code = idx[rows].long()
@@ -156,11 +200,23 @@ def quantize(
     beta: float,
     ema: bool = False,
     precision: str = "highest",
+    mesh=None,
+    search: Callable = nearest_code,
 ) -> QuantizeOutput:
-    """The VQ bottleneck on an NHWC latent map z (B, H, W, D), codebook (K, D)."""
+    """The VQ bottleneck on an NHWC latent map z (B, H, W, D), codebook (K, D).
+
+    On a mesh of ranks (``parallel/mesh.py``) z is this rank's rows of the
+    global batch and ``codebook`` its rows of the codebook; ``search`` is then
+    the sharded search where the codebook is sharded
+    (``parallel/code_parallel.py::nearest_code_sharded`` bound to the mesh).
+    The loss is this rank's rows'; ``counts`` and the perplexity are the
+    global batch's, the counts summed over the mesh's data group. On one
+    process (no mesh, or the trivial one) that sum does nothing.
+    """
     b, h, w, d = z.shape
-    k = codebook.shape[0]
-    z_q_flat, idx_flat = nearest_code(z.reshape(-1, d).contiguous(), codebook, precision)
+    n_data = 1 if mesh is None else mesh.n_data
+    k = codebook.shape[0] * (1 if mesh is None else mesh.n_code)
+    z_q_flat, idx_flat = search(z.reshape(-1, d).contiguous(), codebook, precision=precision)
     z_q = z_q_flat.reshape(b, h, w, d)
     indices = idx_flat.reshape(b, h, w)
 
@@ -179,7 +235,9 @@ def quantize(
     counts = torch.zeros(k, dtype=z.dtype, device=z.device).index_add_(
         0, idx_flat, torch.ones_like(idx_flat, dtype=z.dtype)
     )
-    e_mean = counts / idx_flat.shape[0]
+    if mesh is not None:
+        mesh.psum(counts, "data")
+    e_mean = counts / (idx_flat.shape[0] * n_data)
     perplexity = torch.exp(-torch.sum(e_mean * torch.log(e_mean + 1e-10)))
 
     return QuantizeOutput(
@@ -189,9 +247,11 @@ def quantize(
 
 __all__ = [
     "QuantizeOutput",
+    "best_value_errors",
     "code_scores",
     "compare_assignments",
     "nearest_code",
     "nearest_code_torch",
+    "nearest_code_values_torch",
     "quantize",
 ]

@@ -277,6 +277,16 @@ def save_checkpoint(
     return path
 
 
+def read_state_tree(path: str) -> Tuple[Dict[str, Any], int, Dict, Dict]:
+    """The whole train state of a file as a tree, without a template:
+    -> (tree, step, metrics, hyperparameters)."""
+    with np.load(path, allow_pickle=False) as data:
+        meta = _read_meta(data)
+        flat = {k: np.asarray(data[k]) for k in data.files if k.startswith(_LEAF_PREFIX)}
+    return (unflatten_tree(flat), int(meta["step"]), meta.get("metrics", {}),
+            meta.get("hyperparameters", {}) or {})
+
+
 def load_checkpoint(path: str, state) -> Tuple[Any, int, Dict, Dict]:
     """Restore the full train state of ``path`` into ``state`` (the template),
     in place. Leaves are matched by key path with shape and dtype checks, so
@@ -284,11 +294,9 @@ def load_checkpoint(path: str, state) -> Tuple[Any, int, Dict, Dict]:
 
     Returns (state, step, metrics, hyperparameters).
     """
-    with np.load(path, allow_pickle=False) as data:
-        meta = _read_meta(data)
-        flat = {k: np.asarray(data[k]) for k in data.files if k.startswith(_LEAF_PREFIX)}
-    train_state_from_jax(unflatten_tree(flat), state, what="checkpoint")
-    return state, int(meta["step"]), meta.get("metrics", {}), meta.get("hyperparameters", {}) or {}
+    tree, step, metrics, hyperparameters = read_state_tree(path)
+    train_state_from_jax(tree, state, what="checkpoint")
+    return state, step, metrics, hyperparameters
 
 
 def peek_hyperparameters(path: str) -> Dict:
@@ -327,7 +335,8 @@ class AsyncCheckpointer:
 
     ``save`` copies the state to host memory before it returns (the next
     update changes parameters and moments in place, so a snapshot by
-    reference would race with it) and hands the copy to a writer thread that
+    reference would race with it; a tree, ``train_state_to_jax``'s, is such
+    a copy already) and hands the copy to a writer thread that
     serialises and renames. One save is in flight at a time: a new ``save``
     waits for the one before. An error of the writer is raised by the next
     ``save`` or ``wait``; call ``wait()`` before exit or restore.
@@ -346,7 +355,7 @@ class AsyncCheckpointer:
         hyperparameters: Optional[Dict] = None,
     ) -> str:
         self.wait()
-        snapshot = train_state_to_jax(state)
+        snapshot = state if isinstance(state, Mapping) else train_state_to_jax(state)
 
         def _write():
             try:
@@ -402,6 +411,7 @@ __all__ = [
     "params_to_jax",
     "peek_hyperparameters",
     "read_checkpoint",
+    "read_state_tree",
     "save_checkpoint",
     "train_state_from_jax",
     "train_state_to_jax",
