@@ -44,14 +44,16 @@ stops the script with a non-zero exit and no result line:
    ``load_model`` and feed ``extract_latents``. One step's gradients on the
    card are held against the port on the CPU (same weights, a batch of 32;
    largest error relative to the parameter's largest gradient at most 1e-4,
-   which TF32 in a backward conv would break), and the same 5 updates run
-   twice show how far atomics let two runs part;
+   which TF32 in a backward conv would break);
 8. training in bf16 / "default" (20 updates, 20 launches of the "mma" kernel)
    and with an EMA codebook in fp32 (20 updates, 20 "fma" launches; the EMA
    counts must sum to 16,384 * (1 - 0.99^20) and the codebook equal
-   means / smoothed counts);
+   means / smoothed counts); the same 5 updates run twice from one state, in
+   fp32 ("fma"), bf16 ("mma") and with the EMA codebook, must give the same
+   train state and metrics, 0 difference;
 9. times of a train step (batch 32 and 256 in fp32, 256 in bf16), of the
-   optimizer update, the scatter-add backward and the EMA update alone, and a
+   optimizer update, the scatter-add backward alone (``index_add_``, as it
+   was, beside ``scatter_add_rows``, as it is) and the EMA update alone, and a
    ``torch.profiler`` breakdown of 20 steps at batch 256: records, not checks;
 10. the trained prior (artifacts/e2e_r5, 15 layers, 512 codes, fp32 /
    "highest") through the cached sampler: teacher-forced logits on 64 of the
@@ -80,7 +82,7 @@ stops the script with a non-zero exit and no result line:
    through ``load_prior`` and ``sample``; one epoch in bf16/"default" with
    finite losses; one step's gradients on the card against the CPU (largest
    error relative to each parameter's largest gradient at most 1e-4); the
-   same 5 updates twice; and for the record a step's ms, grids/s, host
+   same 5 updates twice at batch 32 and 256, 0 difference; and for the record a step's ms, grids/s, host
    queueing, share of the peak (``utils/flops.py``) and peak memory at batch
    32 and 256 in fp32 and bf16, and a ``torch.profiler`` breakdown of 20
    steps at batch 256. It launches neither nearest-code kernel.
@@ -103,6 +105,21 @@ stops the script with a non-zero exit and no result line:
    ``extract_latents``; a bf16/"default" 2 x 2 run (10 "mma" launches a
    rank) and an EMA run (the counts summed over the shards follow the
    decay); one NCCL rank, and two on two cards where there are two.
+15. the rest of the package: (a) two ranks of ``train-prior --distributed
+   --n_data 2`` at the full width (gloo sharing the card; NCCL, a card a
+   rank, where there are two) over one epoch of 44 updates at global batch
+   256 on phase 3's grids from one saved epoch-0 state, against one process
+   over the same epoch (update 1's loss within 2 ulps, updates 2-5 rtol
+   4e-6, validation CE within 1e-4 nats), weights, Adam state and per-epoch
+   samples bit-identical on both ranks, each rank's step and all-reduce
+   times; (b) ``profile`` through the CLI, 5 steps at batch 256: a trace that
+   holds ``train_step_0..4`` and the "fma" kernel, 6 launches; (c) ``viz``
+   through the CLI on e2e_r4 and e2e_r5 (1 "fma" and 1 "mma" launch), or,
+   where matplotlib is missing, its device part (``load_model``,
+   ``reconstruct``, ``smooth``) after the command's ImportError; (d)
+   ``train-vqvae --dataset BLOCK``, 20 updates at batch 256 on a synthetic
+   BLOCK file: finite metrics, 20 "fma" launches; (e) ``checked`` around a
+   train step: nothing on a healthy batch, a NaN in the input named by op.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -111,6 +128,7 @@ repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import math
@@ -162,6 +180,16 @@ SPIN_CYCLES = 20_000_000              # device spin (about 11 ms) that lets the 
 SHARD_SPLITS = ((512, 2), (512, 4), (512, 8), (600, 2))
 PARALLEL_BATCH = 256
 PARALLEL_TIMEOUT_S = 300
+# phase 15 (a): the prior's ranks' global batch and the limits of their first
+# 5 losses against one process. Update 1 starts from the same weights: the
+# mean of two ranks' means of 8,192 codes against one mean of 16,384, at most
+# 2 ulps apart. From update 2 the weights part in their last bits (the
+# averaged gradient is summed in another order) and the gap about doubles an
+# update: 0, 0, 7.7e-8, 3.1e-7, 6.2e-7 in the first call on an H100, which
+# repeats bit for bit; 4e-6 leaves six times that.
+PRIOR_PARALLEL_BATCH = 256
+PRIOR_PAR_UPDATE1_ULPS = 2
+PRIOR_PAR_LATER_REL = 4e-6
 DEVICE = "cuda"
 
 
@@ -641,19 +669,16 @@ def prior_training_phase(smi: str, codes: np.ndarray) -> dict:
           f"with TF32 allowed (conv_precision='default'): worst {rows['grad_rel_err_tf32']:.3g}")
     check(errs[worst] <= 1e-4, f"the prior's gradients on the card drift from the CPU: {errs[worst]}")
 
-    # -- the same 5 updates twice from the same state ---------------------------
+    # -- the same 5 updates twice from the same state: 0 difference -------------
     trainer = PixelCNNTrainer(cfg, TrainConfig(), device=DEVICE)
     trainer.stage_dataset(train_ds, val_ds)
-    idx5 = np.arange(5 * 32).reshape(5, 32)
-    finals = []
-    for _ in range(2):
-        st = trainer.init_state(torch.Generator().manual_seed(11))
-        st, l5 = trainer.steps_by_index(st, idx5)
-        finals.append(([p.detach().clone() for p in st.model.parameters()], l5.cpu().numpy()))
-    rows["repeat_param_diff"] = max(float((a - b).abs().max()) for a, b in zip(finals[0][0], finals[1][0]))
-    rows["repeat_loss_diff"] = float(np.abs(finals[0][1] - finals[1][1]).max())
-    print(f"[13] the same 5 updates twice from the same state (batch 32): largest parameter difference "
-          f"{rows['repeat_param_diff']:.3g}, largest loss difference {rows['repeat_loss_diff']:.3g}")
+    rows["repeat"] = {}
+    for batch in (32, 256):  # 256: the embedding's backward sums 16,384 rows
+        diff, dloss = same_updates_twice(trainer, np.arange(5 * batch).reshape(5, batch))
+        rows["repeat"][batch] = [diff, dloss]
+        print(f"[13] the same 5 updates twice from the same state (batch {batch}): largest difference of any "
+              f"train-state leaf (weights, Adam moments) {diff:.3g}, of any loss {dloss:.3g}")
+        check(diff == 0 and dloss == 0, f"two runs of the same 5 prior updates at batch {batch} part")
 
     # -- step times, share of the peak, memory, profile (records, not checks) ----
     flops_grid = pixelcnn_train_step_flops_per_grid(img_dim=cfg.img_dim, dim=cfg.dim,
@@ -705,9 +730,86 @@ def prior_training_phase(smi: str, codes: np.ndarray) -> dict:
                           lambda: tr.steps_by_index(st, idx20), top=20)
     rows["profile"] = {**prof, "launches_per_step": prof.get("launches", 0) / 20}
     print(f"[13] launches and copies a step {rows['profile']['launches_per_step']:.1f}")
+    # the cost of repeating bit for bit: the step at 256 with the arithmetic it had before
+    xb, lb = tr._to_device(train_ds.data[:256]), tr._to_device(train_ds.labels[:256])
+    turns = {"now": [], "before": []}
+    for name in ("now", "before", "before", "now"):
+        with previous_arithmetic() if name == "before" else contextlib.nullcontext():
+            tr.step(st, xb, lb)
+            turns[name].append(time_ms(lambda: tr.step(st, xb, lb), iters=20, warmup=5, queue_ahead=False))
+    with previous_arithmetic():
+        tr.steps_by_index(st, idx20[:5])
+        prof_old = profile_device("13", "the same 20 steps with the arithmetic of before (F.embedding's backward, "
+                                  "cuDNN's default algorithms)", lambda: tr.steps_by_index(st, idx20), top=8)
+    rows["before_vs_now"] = {"step_ms_now": min(turns["now"]), "step_ms_before": min(turns["before"]),
+                             "busy_ms_now": prof.get("busy_ms", 0) / 20,
+                             "busy_ms_before": prof_old.get("busy_ms", 0) / 20,
+                             "conv_ms_now": conv_ms_per_step(prof, 20),
+                             "conv_ms_before": conv_ms_per_step(prof_old, 20)}
+    print(f"[13] fp32 prior step at batch 256, the faster of two turns, now against the arithmetic of before: "
+          f"{json.dumps(rows['before_vs_now'])} ({smi})")
     check(cuda_quantizer.launches == 0, "the prior's training launched a nearest-code kernel")
     print(f"[13] nearest-code kernel launches in phase 13: {cuda_quantizer.launches}")
     return rows
+
+
+@contextlib.contextmanager
+def previous_arithmetic():
+    """The train steps as they were before they repeated bit for bit, for the
+    record: ``index_add_`` for the scatter-adds, ``F.embedding``'s backward
+    for the prior's embedding, cuDNN's default algorithms inside the
+    precision scope."""
+    import torch.nn.functional as F
+
+    from vqvae_tpu_torch.models import pixelcnn
+    from vqvae_tpu_torch.ops import conv, quantizer
+    from vqvae_tpu_torch.parallel import code_parallel
+    from vqvae_tpu_torch.train import pixelcnn_train, vqvae_train
+
+    real_scope = conv.conv_fp32_precision
+
+    @contextlib.contextmanager
+    def scope(precision):
+        with real_scope(precision):
+            torch.backends.cudnn.deterministic = False
+            yield
+
+    def index_add(indices, rows, k):
+        return rows.new_zeros((k, rows.shape[1])).index_add_(0, indices, rows)
+
+    patches = [(m, "conv_fp32_precision", scope) for m in (conv, vqvae_train, pixelcnn_train)]
+    patches += [(m, "scatter_add_rows", index_add) for m in (quantizer, code_parallel, vqvae_train)]
+    patches.append((pixelcnn, "gather_rows", lambda table, idx: F.embedding(idx, table)))
+    saved = [(m, name, getattr(m, name)) for m, name, _new in patches]
+    for m, name, new in patches:
+        setattr(m, name, new)
+    try:
+        yield
+    finally:
+        for m, name, old in saved:
+            setattr(m, name, old)
+
+
+def conv_ms_per_step(prof: dict, steps: int) -> float:
+    return prof.get("groups_ms", {}).get("convolutions (cuDNN, cuBLAS)", 0.0) / steps
+
+
+def same_updates_twice(trainer, idx) -> tuple:
+    """Two runs of the same updates (``steps_by_index(idx)``) from one seeded
+    state: the largest difference of any leaf of the train state (weights,
+    optimizer moments, EMA statistics) and of any per-step metric."""
+    from vqvae_tpu_torch.train.checkpoint import flatten_tree, train_state_to_jax
+
+    runs = []
+    for _ in range(2):
+        st = trainer.init_state(torch.Generator().manual_seed(11))
+        st, m = trainer.steps_by_index(st, idx)
+        metrics = m if isinstance(m, dict) else {"loss": m}
+        runs.append((flatten_tree(train_state_to_jax(st)), {k: v.cpu().numpy() for k, v in metrics.items()}))
+    (sa, ma), (sb, mb) = runs
+    state_diff = max(float(np.abs(sa[k].astype(np.float64) - sb[k]).max()) for k in sa)
+    metric_diff = max(float(np.abs(ma[k].astype(np.float64) - mb[k]).max()) for k in ma)
+    return state_diff, metric_diff
 
 
 def fingerprint(t: torch.Tensor) -> torch.Tensor:
@@ -739,25 +841,8 @@ def rank_worker(out_path: str, argv: list) -> int:
     from vqvae_tpu_torch.parallel import code_parallel
     from vqvae_tpu_torch.train import vqvae_train
 
-    on_card = "cpu" not in argv
-    spans = {"step": [], "reduce": [], "combine": []}
+    spans = Spans("cpu" not in argv)
     prints, captured = [], {}
-
-    def stamp():
-        if on_card:
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            return event
-        return time.perf_counter()
-
-    def timed(fn, key):
-        def wrapper(*args, **kwargs):
-            start = stamp()
-            out = fn(*args, **kwargs)
-            spans[key].append((start, stamp()))
-            return out
-        return wrapper
-
     real_search, real_train = code_parallel.local_search, vqvae_train.train_vqvae
 
     def local_search(z_flat, codebook, precision):
@@ -771,17 +856,15 @@ def rank_worker(out_path: str, argv: list) -> int:
         return out
 
     code_parallel.local_search = local_search
-    code_parallel.exchange_and_combine = timed(code_parallel.exchange_and_combine, "combine")
-    vqvae_train.VQVAETrainer._update = timed(vqvae_train.VQVAETrainer._update, "step")
-    vqvae_train.VQVAETrainer._reduce_gradients = timed(vqvae_train.VQVAETrainer._reduce_gradients, "reduce")
+    code_parallel.exchange_and_combine = spans.wrap(code_parallel.exchange_and_combine, "combine")
+    vqvae_train.VQVAETrainer._update = spans.wrap(vqvae_train.VQVAETrainer._update, "step")
+    vqvae_train.VQVAETrainer._reduce_gradients = spans.wrap(vqvae_train.VQVAETrainer._reduce_gradients,
+                                                            "reduce")
     vqvae_train.train_vqvae = train
     cuda_quantizer.reset_launch_counts()
     rc = cli.main(argv)
-    if on_card:
-        torch.cuda.synchronize()
+    ms = spans.ms()
     state, mesh = captured["state"], captured["trainer"].mesh
-    ms = {key: [s.elapsed_time(e) if on_card else 1e3 * (e - s) for s, e in pairs]
-          for key, pairs in spans.items()}
     named = dict(state.model.named_parameters())
     record = {
         "rc": rc, "rank": mesh.data * mesh.n_code + mesh.code, "data": mesh.data, "code": mesh.code,
@@ -790,14 +873,96 @@ def rank_worker(out_path: str, argv: list) -> int:
         "launches": dict(cuda_quantizer.launches_by_route),
         "replicated_sha": digest(p for n, p in sorted(named.items()) if n != "codebook"),
         "codebook_sha": digest([named["codebook"]]), "z_prints": [p.tolist() for p in prints],
-        "step_ms": ms["step"], "reduce_ms": ms["reduce"], "combine_ms": ms["combine"],
+        "step_ms": ms["step"], "reduce_ms": ms["reduce"], "combine_ms": ms.get("combine", []),
     }
     with open(out_path, "w") as f:
         json.dump(record, f)
     return rc
 
 
-def run_clusters(clusters: dict, work: str, timeout: float = PARALLEL_TIMEOUT_S) -> dict:
+class Spans:
+    """Times of calls by key: CUDA events on a card, the host clock on the CPU."""
+
+    def __init__(self, on_card: bool):
+        self.on_card, self.pairs = on_card, {}
+
+    def _stamp(self):
+        if self.on_card:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            return event
+        return time.perf_counter()
+
+    def wrap(self, fn, key):
+        self.pairs.setdefault(key, [])
+
+        def wrapper(*args, **kwargs):
+            start = self._stamp()
+            out = fn(*args, **kwargs)
+            self.pairs[key].append((start, self._stamp()))
+            return out
+        return wrapper
+
+    def ms(self) -> dict:
+        if self.on_card:
+            torch.cuda.synchronize()
+        return {key: [s.elapsed_time(e) if self.on_card else 1e3 * (e - s) for s, e in pairs]
+                for key, pairs in self.pairs.items()}
+
+
+def prior_rank_worker(out_path: str, argv: list) -> int:
+    """One rank of phase 15 (a): ``vqvae_tpu_torch.cli.main(argv)``
+    (``train-prior --distributed ...``) with timers around each update and
+    each gradient all-reduce, and the global batch's loss of every update;
+    then a JSON record of the rank at ``out_path``."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from vqvae_tpu_torch import cli
+    from vqvae_tpu_torch.ops import cuda_quantizer
+    from vqvae_tpu_torch.train import pixelcnn_train
+    from vqvae_tpu_torch.train.checkpoint import flatten_tree, train_state_to_jax
+
+    spans, captured, losses = Spans("cpu" not in argv), {}, []
+    real_train, real_run = pixelcnn_train.train_pixelcnn, pixelcnn_train.PixelCNNTrainer._run
+
+    def train(*args, **kwargs):
+        out = real_train(*args, **kwargs)
+        captured["backend"] = dist.get_backend() if dist.is_initialized() else None
+        captured["state"], captured["out"] = out
+        return out
+
+    def run(self, state, batches):
+        out = real_run(self, state, batches)
+        losses.append(out[1])
+        return out
+
+    pixelcnn_train.PixelCNNTrainer._run = run
+    pixelcnn_train.PixelCNNTrainer._update = spans.wrap(pixelcnn_train.PixelCNNTrainer._update, "step")
+    pixelcnn_train.PixelCNNTrainer._reduce_gradients = spans.wrap(
+        pixelcnn_train.PixelCNNTrainer._reduce_gradients, "reduce")
+    pixelcnn_train.train_pixelcnn = train
+    cuda_quantizer.reset_launch_counts()
+    rc = cli.main(argv)
+    ms = spans.ms()
+    state, out = captured["state"], captured["out"]
+    mesh = out["trainer"].mesh
+    flat = flatten_tree(train_state_to_jax(state))
+    record = {
+        "rc": rc, "rank": mesh.data, "backend": captured["backend"],
+        "backend_asked": argv[argv.index("--dist_backend") + 1], "device": str(out["trainer"].device),
+        "updates": state.step, "launches": dict(cuda_quantizer.launches_by_route),
+        "losses": torch.cat(losses).tolist(), "history": out["history"],
+        "state_sha": digest(torch.from_numpy(flat[k]) for k in sorted(flat)),
+        "samples_sha": digest(torch.from_numpy(g) for g in out["samples"]),
+        "step_ms": ms["step"], "reduce_ms": ms["reduce"],
+    }
+    with open(out_path, "w") as f:
+        json.dump(record, f)
+    return rc
+
+
+def run_clusters(clusters: dict, work: str, timeout: float = PARALLEL_TIMEOUT_S, tag: str = "14") -> dict:
     """Start every rank of every cluster at once (``clusters``: name -> list of
     each rank's ``train-vqvae`` arguments), each a ``rank_worker`` process
     logging to ``work``; wait for all. A rank that fails or outlives
@@ -828,7 +993,7 @@ def run_clusters(clusters: dict, work: str, timeout: float = PARALLEL_TIMEOUT_S)
     if failed:
         for name, i, _out, log, _p in procs:
             with open(log.name) as f:
-                print(f"[14] --- {name} rank {i} log (tail) ---\n" + "".join(f.readlines()[-25:]))
+                print(f"[{tag}] --- {name} rank {i} log (tail) ---\n" + "".join(f.readlines()[-25:]))
         check(False, f"parallel ranks failed: {failed}")
     records = {}
     for name, i, out, _log, _p in procs:
@@ -1104,6 +1269,238 @@ def parallel_phase(smi: str, dataset) -> dict:
     return rows
 
 
+def prior_parallel_phase(smi: str, codes: np.ndarray, work: str) -> dict:
+    """Phase 15 (a): two ranks of ``train-prior --distributed --n_data 2`` at
+    the full width on phase 3's grids, against one process over the same
+    epoch from one saved epoch-0 state. Returns the numbers of the record."""
+    from vqvae_tpu_torch import cli
+    from vqvae_tpu_torch.config import PixelCNNConfig, TrainConfig
+    from vqvae_tpu_torch.pipelines.viz import load_prior
+    from vqvae_tpu_torch.train import pixelcnn_train
+    from vqvae_tpu_torch.train.checkpoint import flatten_tree, read_state_tree, save_checkpoint
+
+    rows = {}
+    cfg = PixelCNNConfig(input_dim=512, dim=64, n_layers=15, img_dim=8)
+    data_dir = os.path.join(work, "data")
+    os.makedirs(data_dir)
+    np.save(os.path.join(data_dir, "latent_e_indices.npy"), codes)
+    start = pixelcnn_train.PixelCNNTrainer(cfg, TrainConfig(), device=DEVICE).init_state()
+    grad_mb = 4 * sum(p.numel() for p in start.model.parameters()) / 1e6  # one fp32 all-reduce
+    for name in ("single", "par"):
+        os.makedirs(os.path.join(work, name))
+        save_checkpoint(os.path.join(work, name, "latent_block_pixelcnn.npz"), start, 0,
+                        metrics={"train_loss": [], "val_loss": []}, hyperparameters=cfg.to_dict())
+    common = ["--epochs", "2", "--batch_size", str(PRIOR_PARALLEL_BATCH), "--steps_per_dispatch", "11",
+              "--log_interval", "44", "--resume", "-save", "--gen_samples", "--data_dir", data_dir]
+
+    # one process over the same epoch, its per-update losses recorded
+    losses, real_run = [], pixelcnn_train.PixelCNNTrainer._run
+    runs, real_train = [], pixelcnn_train.train_pixelcnn
+
+    def run(self, state, batches):
+        out = real_run(self, state, batches)
+        losses.append(out[1])
+        return out
+
+    def recording(*args, **kwargs):
+        out = real_train(*args, **kwargs)
+        runs.append(out)
+        return out
+
+    pixelcnn_train.PixelCNNTrainer._run, pixelcnn_train.train_pixelcnn = run, recording
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["train-prior", "--results_dir", os.path.join(work, "single"), *common])
+        torch.cuda.synchronize()
+        rows["single_s"] = time.perf_counter() - t0
+    finally:
+        pixelcnn_train.PixelCNNTrainer._run, pixelcnn_train.train_pixelcnn = real_run, real_train
+    single_state, single_out = runs[-1]
+    single_losses = torch.cat(losses).tolist()
+    single_val = single_out["history"]["val_loss"][0]
+    check(rc == 0 and single_state.step == len(single_losses) == (len(codes) - 500) // PRIOR_PARALLEL_BATCH,
+          f"one process did not take one epoch: {single_state.step} updates")
+
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    port = free_port()
+    argv = [["train-prior", "--distributed", "--coordinator_address", f"127.0.0.1:{port}",
+             "--num_processes", "2", "--process_id", str(r), "--n_data", "2", "--dist_backend", backend,
+             "--device", DEVICE, "--results_dir", os.path.join(work, "par"), *common] for r in range(2)]
+    t0 = time.perf_counter()
+    recs = sorted(run_clusters({"prior": argv}, work, tag="15")["prior"], key=lambda r: r["rank"])
+    rows["ranks_s"] = time.perf_counter() - t0
+    for r in recs:
+        check(r["rc"] == 0 and r["updates"] == len(single_losses) and r["backend"] == r["backend_asked"]
+              and r["launches"] == {"mma": 0, "fma": 0},
+              f"prior rank {r['rank']}: rc {r['rc']}, {r['updates']} updates, backend {r['backend']}, "
+              f"launches {r['launches']}")
+    ours, theirs = np.asarray(recs[0]["losses"][:5]), np.asarray(single_losses[:5])
+    rel = (np.abs(ours - theirs) / np.abs(theirs)).tolist()
+    ulps = float(abs(ours[0] - theirs[0]) / np.spacing(np.float32(theirs[0])))
+    val_diff = abs(recs[0]["history"]["val_loss"][0] - single_val)
+    rows.update(update1_ulps=ulps, updates2_5_rel_diff=max(rel[1:]), val_ce=recs[0]["history"]["val_loss"][0],
+                val_ce_single=single_val, val_ce_diff=val_diff, backend=backend)
+    print(f"[15] train-prior --distributed --n_data 2 ({backend}, {torch.cuda.device_count()} card(s)), one epoch "
+          f"of {recs[0]['updates']} updates at global batch {PRIOR_PARALLEL_BATCH} from one saved epoch-0 state in "
+          f"{rows['ranks_s']:.3f} s (2 processes, host clock; one process {rows['single_s']:.3f} s): first 5 "
+          f"losses {ours.tolist()} against one process {theirs.tolist()}: relative {rel}, update 1 {ulps} ulps; "
+          f"validation CE {recs[0]['history']['val_loss'][0]:.6f} against {single_val:.6f} "
+          f"(|difference| {val_diff:.3g}, bound 1e-4)")
+    check(ulps <= PRIOR_PAR_UPDATE1_ULPS and max(rel[1:]) <= PRIOR_PAR_LATER_REL,
+          f"the prior's ranks depart from one process in updates 1-5: {ulps} ulps, {rel}")
+    check(val_diff <= 1e-4, f"the prior's ranks' validation CE departs by {val_diff}")
+    check(recs[0]["state_sha"] == recs[1]["state_sha"] and recs[0]["samples_sha"] == recs[1]["samples_sha"],
+          f"the prior's replicas differ: {[(r['state_sha'], r['samples_sha']) for r in recs]}")
+    print(f"[15] replicas after the epoch: weights and Adam state bit-identical on both ranks "
+          f"({recs[0]['state_sha']}); per-epoch samples from one seed identical ({recs[0]['samples_sha']})")
+    timing = {}
+    for r in recs:
+        t = {key: float(np.median(r[key][1:])) for key in ("step_ms", "reduce_ms")}
+        timing[r["rank"]] = t
+        print(f"[15] prior rank {r['rank']} on {r['device']}, {r['backend']}: median of updates 2-"
+              f"{r['updates']}: step {t['step_ms']:.3f} ms, gradient all-reduce ({grad_mb:.2f} MB) "
+              f"{t['reduce_ms']:.3f} ms (CUDA events; {smi})")
+    rows["rank_ms"] = timing
+    par_file = os.path.join(work, "par", "latent_block_pixelcnn.npz")
+    _tree, epoch, metrics, _hp = read_state_tree(par_file)
+    prior, _m, _hp = load_prior(par_file, DEVICE)
+    single_flat = flatten_tree(read_state_tree(os.path.join(work, "single", "latent_block_pixelcnn.npz"))[0])
+    par_flat = flatten_tree(_tree)
+    params_diff = max(float(np.abs(par_flat[k] - single_flat[k]).max()) for k in single_flat if ".params" in k)
+    rows["params_diff"] = params_diff
+    print(f"[15] rank 0's file: epoch {epoch}, history {metrics}, through load_prior "
+          f"({sum(p.numel() for p in prior.parameters())} parameters); parameters against one process after "
+          f"the epoch: largest difference {params_diff:.3g}")
+    check(epoch == 1 and metrics == recs[0]["history"], "rank 0's prior file is not the epoch's")
+    return rows
+
+
+def rest_phase(smi: str, dataset, codes: np.ndarray) -> dict:
+    """Phase 15: the prior's ranks (a), ``profile`` (b), ``viz`` (c), training
+    on BLOCK (d) and ``checked`` around a train step (e). Returns the numbers
+    of the record and each kernel's launches."""
+    import importlib.util
+    import tempfile
+
+    from vqvae_tpu_torch import cli
+    from vqvae_tpu_torch.config import TrainConfig, VQVAEConfig
+    from vqvae_tpu_torch.data.datasets import load_dataset
+    from vqvae_tpu_torch.ops import cuda_quantizer
+    from vqvae_tpu_torch.pipelines.viz import load_model, reconstruct, smooth
+    from vqvae_tpu_torch.train.checkpoint import read_state_tree
+    from vqvae_tpu_torch.train.vqvae_train import VQVAETrainer
+    from vqvae_tpu_torch.utils.debug import checked
+
+    rows, launches = {}, {}
+    data_dir = os.path.join(ROOT, "data")
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- (a) the prior's data parallelism -----------------------------------
+        t0 = time.perf_counter()
+        rows["prior_ranks"] = prior_parallel_phase(smi, codes, os.path.join(tmp, "prior"))
+        rows["a_s"] = time.perf_counter() - t0
+
+        # -- (b) profile through the CLI -------------------------------------------
+        trace = os.path.join(tmp, "trace")
+        cuda_quantizer.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["profile", "--batch_size", str(TRAIN_BATCH), "--profile_steps", "5",
+                       "--trace_dir", trace, "--data_dir", data_dir])
+        rows["b_s"] = time.perf_counter() - t0
+        launches["profile"] = dict(cuda_quantizer.launches_by_route)
+        files = [f for f in os.listdir(trace) if f.endswith(".pt.trace.json")]
+        with open(os.path.join(trace, files[0])) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        steps = sorted(n for n in names if n.startswith("train_step_"))
+        kernel = sorted(n for n in names if "nearest_code_kernel" in n)
+        print(f"[15] profile --batch_size {TRAIN_BATCH} --profile_steps 5: rc {rc}, {rows['b_s']:.3f} s, trace "
+              f"{files} ({os.path.getsize(os.path.join(trace, files[0])) / 2**20:.1f} MB, {len(names)} distinct "
+              f"names) holds {steps} and {kernel[:1]}; kernel launches {launches['profile']}")
+        check(rc == 0 and len(files) == 1 and steps == [f"train_step_{i}" for i in range(5)] and kernel,
+              "the profile trace lacks a step or the fma kernel")
+        check(launches["profile"] == {"mma": 0, "fma": 6}, f"profile: launches {launches['profile']}")
+
+        # -- (c) viz on both trained checkpoints --------------------------------------
+        have_mpl = importlib.util.find_spec("matplotlib") is not None
+        for name, ckpt, route in (("e2e_r4", R4, "fma"), ("e2e_r5", R5, "mma")):
+            out_dir = os.path.join(tmp, "viz", name)
+            cuda_quantizer.reset_launch_counts()
+            if have_mpl:
+                rc = cli.main(["viz", "--checkpoint", ckpt, "--out_dir", out_dir, "--data_dir", data_dir,
+                               "--n_images", "16"])
+                written = sorted(os.listdir(out_dir))
+                print(f"[15] viz {name}: rc {rc}, wrote {written}")
+                check(rc == 0 and written == ["metrics.png", "originals.png", "reconstructions.png"],
+                      f"viz {name} failed")
+            else:
+                try:
+                    cli.main(["viz", "--checkpoint", ckpt, "--out_dir", out_dir, "--data_dir", data_dir])
+                    check(False, "viz ran without matplotlib")
+                except ImportError as e:
+                    print(f"[15] viz {name}: matplotlib is not installed on this machine ({e}); "
+                          f"running viz's device part instead: load_model, reconstruct, smooth")
+                cuda_quantizer.reset_launch_counts()
+                model, metrics, hp = load_model(ckpt, DEVICE)
+                _tr, val, _v, _i = load_dataset(hp.get("dataset", "CIFAR10"), data_dir)
+                rec = reconstruct(model, val.data[:16])
+                curves = {k: smooth(metrics[k]) for k in ("recon_errors", "loss_vals", "perplexities")}
+                print(f"[15] viz {name} (device part): reconstructions {rec.shape}, mse "
+                      f"{float(np.mean((rec - val.data[:16]) ** 2)):.6f}; smoothed curves of "
+                      f"{ {k: len(v) for k, v in curves.items()} } updates, last recon_error "
+                      f"{curves['recon_errors'][-1]:.4f}")
+                check(rec.shape == (16, 32, 32, 3) and np.isfinite(rec).all()
+                      and all(np.isfinite(v).all() for v in curves.values()), f"viz {name}: not finite")
+            launches[f"viz {name}"] = dict(cuda_quantizer.launches_by_route)
+            want = {"mma": 0, "fma": 0, route: 1}
+            check(launches[f"viz {name}"] == want, f"viz {name}: launches {launches[f'viz {name}']}, want {want}")
+
+        # -- (d) train-vqvae on a synthetic BLOCK file ---------------------------------
+        block_dir, results = os.path.join(tmp, "block"), os.path.join(tmp, "block_results")
+        os.makedirs(block_dir)
+        frames = np.random.default_rng(15).integers(0, 255, (1000, 1, 1, 48, 48, 4), dtype=np.uint8)
+        np.save(os.path.join(block_dir, "randact_traj_length_100_n_trials_1000_n_contexts_1.npy"), frames)
+        cuda_quantizer.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["train-vqvae", "--dataset", "BLOCK", "--data_dir", block_dir, "--batch_size",
+                       str(TRAIN_BATCH), "--n_updates", "20", "--log_interval", "10", "--steps_per_dispatch",
+                       "10", "-save", "--filename", "block", "--results_dir", results])
+        rows["d_s"] = time.perf_counter() - t0
+        launches["block"] = dict(cuda_quantizer.launches_by_route)
+        _tree, step, m, hp = read_state_tree(os.path.join(results, "vqvae_block_step19.npz"))
+        print(f"[15] train-vqvae --dataset BLOCK (1,000 synthetic 48 x 48 frames, 900 for training), 20 "
+              f"updates at batch {TRAIN_BATCH}: rc {rc}, {rows['d_s']:.3f} s, loss {m['loss_vals'][0]:.6f} -> "
+              f"{m['loss_vals'][-1]:.6f}, x_train_var {hp['x_train_var']:.6f}, launches {launches['block']}")
+        check(rc == 0 and step == 19 and len(m["loss_vals"]) == 20 and hp["dataset"] == "BLOCK"
+              and all(np.isfinite(m[k]).all() for k in ("loss_vals", "recon_errors", "perplexities")),
+              "training on BLOCK failed or a metric is not finite")
+        check(launches["block"] == {"mma": 0, "fma": 20}, f"BLOCK: launches {launches['block']}")
+
+    # -- (e) checked around one train step -------------------------------------------
+    train, _val, x_train_var, _info = dataset
+    trainer = VQVAETrainer(VQVAEConfig(), TrainConfig(batch_size=32), x_train_var, device=DEVICE)
+    x = torch.from_numpy(train.data[:32]).to(DEVICE)
+    cuda_quantizer.reset_launch_counts()
+    t0 = time.perf_counter()
+    err, (_st, m) = checked(trainer.step)(trainer.init_state(), x)
+    rows["e_checked_step_s"] = time.perf_counter() - t0
+    x_bad = x.clone()
+    x_bad[3, 7, 7, 1] = float("nan")
+    err_bad, _out = checked(trainer.step)(trainer.init_state(), x_bad)
+    launches["checked"] = dict(cuda_quantizer.launches_by_route)
+    try:
+        err_bad.throw()
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    print(f"[15] checked(trainer.step), fp32 batch 32: healthy batch -> {err!r}, loss {float(m['loss']):.6f} "
+          f"({rows['e_checked_step_s']:.3f} s with a check after every op); a NaN written into the input -> "
+          f"throw() raised {raised!r}; launches {launches['checked']}")
+    check(err.get() is None and math.isfinite(float(m["loss"])), f"a healthy step was flagged: {err!r}")
+    check(raised is not None and raised.startswith("aten."), "a NaN in the input was not caught")
+    check(launches["checked"] == {"mma": 0, "fma": 2}, f"checked: launches {launches['checked']}")
+    rows["launches"] = launches
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1120,9 +1517,10 @@ def main() -> int:
         compare_assignments,
         nearest_code_torch,
     )
+    from vqvae_tpu_torch.ops.scatter import scatter_add_rows
     from vqvae_tpu_torch.pipelines.extract import extract_latents
     from vqvae_tpu_torch.pipelines.viz import load_model, reconstruct
-    from vqvae_tpu_torch.train.vqvae_train import VQVAETrainer, metrics_to_host, train_vqvae
+    from vqvae_tpu_torch.train.vqvae_train import VQVAETrainer, train_vqvae
 
     torch.set_float32_matmul_precision("highest")  # the plain version's fp32 matmul
     dev = torch.device(DEVICE)
@@ -1410,17 +1808,9 @@ def main() -> int:
           f"{torch.backends.cudnn.conv.fp32_precision!r}): worst {max(errs_fwd.values()):.3g}")
     check(errs[worst] <= 1e-4, f"gradients on the card drift from the CPU (TF32 in a backward conv?): {errs[worst]}")
 
-    # atomics: the same 5 updates twice from the same state
+    # the same 5 updates twice from the same state: bit for bit
     idx5 = np.stack([np.arange(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH) for i in range(5)])
-    finals = []
-    for _ in range(2):
-        st = trainer7.init_state(torch.Generator().manual_seed(11))
-        st, m5 = trainer7.steps_by_index(st, idx5)
-        finals.append(([p.detach().clone() for p in st.model.parameters()], metrics_to_host(m5)))
-    diff = max(float((a - b).abs().max()) for a, b in zip(finals[0][0], finals[1][0]))
-    dloss = float(np.abs(finals[0][1]["loss"] - finals[1][1]["loss"]).max())
-    print(f"[7] the same 5 updates twice from the same state (batch {TRAIN_BATCH}): largest parameter "
-          f"difference {diff:.3g}, largest loss difference {dloss:.3g} (index_add_ adds with atomics)")
+    repeats = {"fp32/highest (fma)": same_updates_twice(trainer7, idx5)}
 
     # -- phase 8: training in bf16 / default (route mma) and with an EMA codebook ---
     cfg8 = TrainConfig(batch_size=TRAIN_BATCH, n_updates=20, log_interval=20, steps_per_dispatch=10)
@@ -1459,6 +1849,13 @@ def main() -> int:
     check(cb_err <= 1e-5, "the EMA codebook is not means / smoothed counts")
     check(all(not bool(state_e.optimizer.state[state_e.model.codebook][m].any())
               for m in ("mu", "nu", "nu_max")), "the EMA codebook has optimizer moments")
+    repeats["bf16/default (mma)"] = same_updates_twice(_t8, idx5)
+    repeats["EMA, fp32/highest (fma)"] = same_updates_twice(_te, idx5)
+    for name, (diff, dmetric) in repeats.items():
+        print(f"[8] the same 5 updates twice from the same state, {name}, batch {TRAIN_BATCH}: largest "
+              f"difference of any train-state leaf {diff:.3g}, of any metric {dmetric:.3g}")
+    check(all(d == 0 and m == 0 for d, m in repeats.values()),
+          f"two runs of the same 5 updates part: {repeats}")
 
     # -- phase 9: times of the train step and its parts (records, not checks) ----
     def step_timer(vq_cfg, batch):
@@ -1501,18 +1898,29 @@ def main() -> int:
     narrow = spread % 4
     real = q9.indices.reshape(-1)
     acc = torch.zeros(k, d, device=dev)
+    scatter_rows = {}
     for name, idx in (("uniform over 512 codes", spread), ("4 codes", narrow),
                       (f"a fresh model's assignments, {len(torch.unique(real))} codes", real)):
-        t_scatter = time_ms(lambda: acc.zero_().index_add_(0, idx, g))
-        print(f"[9] scatter-add backward alone, zero + index_add_ of ({n}, {d}) into ({k}, {d}), "
-              f"indices {name}: {t_scatter:.5f} ms")
+        t = alternate({"index_add_": lambda: acc.zero_().index_add_(0, idx, g),
+                       "scatter_add_rows": lambda: scatter_add_rows(idx, g, k)})
+        # the deterministic alternative not taken: one code's rows summed in turn
+        t["index_put_"] = time_ms(lambda: acc.zero_().index_put_((idx.long(),), g, accumulate=True),
+                                  iters=5, warmup=1, queue_ahead=False)
+        same = torch.equal(scatter_add_rows(idx, g, k), scatter_add_rows(idx, g, k))
+        scatter_rows[name] = t
+        print(f"[9] scatter-add backward alone, ({n}, {d}) rows into ({k}, {d}), indices {name}: "
+              f"zero + index_add_ (atomics, before) {t['index_add_']:.5f} ms, scatter_add_rows "
+              f"(float64 one-hot product, now) {t['scatter_add_rows']:.5f} ms, both behind a spin; "
+              f"zero + index_put_(accumulate=True) {t['index_put_']:.5f} ms at the host's pace; "
+              f"scatter_add_rows twice bit-identical {same}")
+        check(same, "scatter_add_rows gave two results for one input")
     ema_trainer, ema_state, _x, ema_step = step_timer(vq_ema, TRAIN_BATCH)
     ema_step()
     with torch.no_grad():
         z9 = ema_state.model.encode(x9)
         q_ema = ema_state.model.quantize(z9)
     t_ema = time_ms(lambda: ema_trainer._ema_update(ema_state, z9, q_ema), queue_ahead=False)
-    print(f"[9] EMA update alone (sums by index_add_, decay, smoothing, codebook overwrite) at "
+    print(f"[9] EMA update alone (sums by scatter_add_rows, decay, smoothing, codebook overwrite) at "
           f"({n}, {k}, {d}): {t_ema:.5f} ms a call at the host's pace")
     print(f"[9] card: {smi}; train-step times from CUDA events around 30 steps after 10 warm-up, "
           f"no spin, the faster of two turns; host_queue_ms is the host clock around 30 steps "
@@ -1520,8 +1928,23 @@ def main() -> int:
     idx20 = np.stack([np.arange(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH) for i in range(20)])
     trainer9.stage_dataset(train.data)
     trainer9.steps_by_index(state9, idx20[:5])
-    profile_device("9", f"20 train steps at batch {TRAIN_BATCH}, fp32/highest, steps_by_index",
-                   lambda: trainer9.steps_by_index(state9, idx20), top=24)
+    prof9 = profile_device("9", f"20 train steps at batch {TRAIN_BATCH}, fp32/highest, steps_by_index",
+                           lambda: trainer9.steps_by_index(state9, idx20), top=24)
+    # the cost of repeating bit for bit: the same step with the arithmetic it had before
+    turns = {"now": [], "before": []}
+    for name in ("now", "before", "before", "now"):
+        with previous_arithmetic() if name == "before" else contextlib.nullcontext():
+            step9()
+            turns[name].append(time_ms(step9, iters=30, warmup=5, queue_ahead=False))
+    with previous_arithmetic():
+        trainer9.steps_by_index(state9, idx20[:5])
+        prof9_old = profile_device("9", f"the same 20 steps with the arithmetic of before (index_add_, cuDNN's "
+                                   f"default algorithms)", lambda: trainer9.steps_by_index(state9, idx20), top=8)
+    print(f"[9] fp32/highest step at batch {TRAIN_BATCH}, the faster of two turns: now {min(turns['now']):.3f} ms, "
+          f"with the arithmetic of before {min(turns['before']):.3f} ms; device busy a step (profiler on) now "
+          f"{prof9.get('busy_ms', 0) / 20:.3f} ms, before {prof9_old.get('busy_ms', 0) / 20:.3f} ms; convolutions "
+          f"a step now {conv_ms_per_step(prof9, 20):.3f} ms, before {conv_ms_per_step(prof9_old, 20):.3f} ms "
+          f"({smi})")
     t_prior = time.perf_counter()
     prior_rows = sampling_phases(dev, smi)
     print(f"[12] phases 10-12 took {time.perf_counter() - t_prior:.1f} s; {json.dumps(prior_rows)}")
@@ -1531,11 +1954,17 @@ def main() -> int:
     t_parallel = time.perf_counter()
     parallel_rows = parallel_phase(smi, dataset)
     print(f"[14] phase 14 took {time.perf_counter() - t_parallel:.1f} s; {json.dumps(parallel_rows)}")
+    t_rest = time.perf_counter()
+    rest_rows = rest_phase(smi, dataset, codes)
+    print(f"[15] phase 15 took {time.perf_counter() - t_rest:.1f} s; {json.dumps(rest_rows)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     def parallel_launches(route):  # phase 14's main-path launches, every rank's
         return sum(counts[route] for runs in parallel_rows["launches"].values()
                    for counts in (runs if isinstance(runs, list) else [runs]))
+
+    def rest_launches(route):  # phase 15's launches: profile, viz, BLOCK, checked
+        return sum(counts[route] for counts in rest_rows["launches"].values())
 
     def entry(name, source, route, mode, launches):
         row = main_rows[mode]
@@ -1549,9 +1978,10 @@ def main() -> int:
     # its launches summed over those paths, each counted from zero
     kernels = [
         entry("nearest_code_mma", "vqvae_tpu_torch/csrc/nearest_code_mma.cu", "mma", "default",
-              launches_main["mma"] + launches_bf16["mma"] + parallel_launches("mma")),
+              launches_main["mma"] + launches_bf16["mma"] + parallel_launches("mma") + rest_launches("mma")),
         entry("nearest_code", "vqvae_tpu_torch/csrc/nearest_code.cu", "fma", "highest",
-              launches_rec["fma"] + launches_fp32["fma"] + launches_ema["fma"] + parallel_launches("fma")),
+              launches_rec["fma"] + launches_fp32["fma"] + launches_ema["fma"] + parallel_launches("fma")
+              + rest_launches("fma")),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path was never launched")
     print(json.dumps({"kernels": kernels}))
@@ -1561,6 +1991,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) > 2 and sys.argv[1] == "--rank-worker":
-        sys.exit(rank_worker(sys.argv[2], sys.argv[3:]))
+    if len(sys.argv) > 3 and sys.argv[1] == "--rank-worker":
+        worker = prior_rank_worker if sys.argv[3] == "train-prior" else rank_worker
+        sys.exit(worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -77,7 +77,8 @@ def test_load_dataset_bit_identical_to_jax(tmp_path):
     for a, b in ((tr, jtr), (va, jva)):
         assert a.data.dtype == b.data.dtype and np.array_equal(a.data, b.data)
         assert np.array_equal(a.labels, b.labels)
-    with pytest.raises(ValueError, match="not ported"):
+    # BLOCK is ported: without its file in the directory it raises, as JAX's does
+    with pytest.raises(FileNotFoundError, match="randact_traj"):
         load_dataset("BLOCK", str(tmp_path))
 
 

@@ -5,19 +5,25 @@
     python -m vqvae_tpu_torch.cli train-prior [--epochs 100 --batch_size 32 ...] [--device cpu]
     python -m vqvae_tpu_torch.cli sample --vqvae-checkpoint ... --prior-checkpoint ... [--device cpu]
     python -m vqvae_tpu_torch.cli serve --prior-checkpoint ... [--vqvae-checkpoint ...] [--device cpu]
+    python -m vqvae_tpu_torch.cli profile [--trace_dir results/trace --profile_steps 10 ...] [--device cpu]
+    python -m vqvae_tpu_torch.cli viz --checkpoint results/...npz [--out_dir results/viz] [--device cpu]
 
 Flag names and defaults are the JAX package's (and the reference's,
 main.py:16-30, gated_pixelcnn.py:27-42). ``train-vqvae`` takes the JAX
 command's mesh flags (``--n_data``, ``--n_code``, ``--distributed``,
 ``--coordinator_address``, ``--num_processes``, ``--process_id``) and
 ``--dist_backend``; it runs one process a rank (``parallel/distributed.py``).
-``extract-latents``, ``sample`` and ``serve`` rebuild each model from its
-checkpoint's stored hyperparameters; for a file that stores none they take
-the model flags, which must then be given (the command fails and names
+``train-prior`` takes the same flags but ``--n_code`` (the prior's mesh is
+1-D over data). The JAX ``train-prior`` has none of them, because its one
+process spreads over every local device by itself; the port runs one
+process a rank, and a rank must be told to join a group.
+``extract-latents``, ``sample``, ``serve`` and ``viz`` rebuild each model from
+its checkpoint's stored hyperparameters; for a file that stores none they
+take the model flags, which must then be given (the command fails and names
 them otherwise). ``train-prior`` trains on ``<data_dir>/latent_e_indices.npy``
 (what ``extract-latents`` writes) and saves ``<results_dir>/latent_block_pixelcnn.npz``.
 Every command runs on the CUDA card unless ``--device cpu`` is given.
-``profile``, ``benchmark`` and ``viz`` come with later slices.
+``benchmark`` comes with the port's benchmark script.
 """
 
 from __future__ import annotations
@@ -84,11 +90,12 @@ def _add_vqvae_flags(p: argparse.ArgumentParser) -> None:
                         "dispatches on the tensor's device only")
 
 
-def _add_mesh_flags(p: argparse.ArgumentParser) -> None:
+def _add_mesh_flags(p: argparse.ArgumentParser, code_axis: bool = True) -> None:
     p.add_argument("--n_data", type=int, default=None,
                    help="ranks on the data axis (default: world size // n_code)")
-    p.add_argument("--n_code", type=int, default=1,
-                   help="ranks that share the codebook row-wise")
+    if code_axis:
+        p.add_argument("--n_code", type=int, default=1,
+                       help="ranks that share the codebook row-wise")
     p.add_argument("--distributed", action="store_true",
                    help="join a torch.distributed group: one process a rank")
     p.add_argument("--coordinator_address", type=str, default=None,
@@ -105,7 +112,7 @@ def _mesh_cfg(args):
 
     return MeshConfig(
         n_data=args.n_data,
-        n_code=args.n_code,
+        n_code=getattr(args, "n_code", 1),
         distributed=args.distributed,
         coordinator_address=args.coordinator_address,
         num_processes=args.num_processes,
@@ -123,15 +130,10 @@ def _given(flags, args) -> bool:
     return any(f.lstrip("-") in args.given_model_flags for f in flags)
 
 
-def _vqvae_flags_cfg(args):
-    """The VQ-VAE config the model flags give: the fallback for a checkpoint
-    that stores no hyperparameters (``load_model`` prefers stored ones).
-    None when no model flag was given, so that such a file is refused."""
+def _vqvae_cfg_from_flags(args):
+    """The VQ-VAE config of the model and mode flags (``train-vqvae``, ``profile``)."""
     from vqvae_tpu_torch.config import VQVAEConfig
-    from vqvae_tpu_torch.pipelines.viz import VQVAE_FLAGS
 
-    if not _given(VQVAE_FLAGS, args):
-        return None
     return VQVAEConfig(
         n_hiddens=args.n_hiddens,
         n_residual_hiddens=args.n_residual_hiddens,
@@ -142,10 +144,20 @@ def _vqvae_flags_cfg(args):
         share_residual_weights=args.share_residual_weights,
         compute_dtype=args.compute_dtype,
         conv_precision=args.conv_precision,
-        quantizer_precision=args.quantizer_precision,
         ema_codebook=args.ema_codebook,
         ema_decay=args.ema_decay,
+        quantizer_precision=args.quantizer_precision,
+        quantizer_impl=args.quantizer_impl,
     )
+
+
+def _vqvae_flags_cfg(args):
+    """The VQ-VAE config the model flags give: the fallback for a checkpoint
+    that stores no hyperparameters (``load_model`` prefers stored ones).
+    None when no model flag was given, so that such a file is refused."""
+    from vqvae_tpu_torch.pipelines.viz import VQVAE_FLAGS
+
+    return _vqvae_cfg_from_flags(args) if _given(VQVAE_FLAGS, args) else None
 
 
 def _prior_flags_cfg(args):
@@ -161,7 +173,7 @@ def _prior_flags_cfg(args):
 
 
 def cmd_train_vqvae(args) -> int:
-    from vqvae_tpu_torch.config import TrainConfig, VQVAEConfig
+    from vqvae_tpu_torch.config import TrainConfig
     from vqvae_tpu_torch.parallel.distributed import (
         is_primary_host,
         maybe_initialize_distributed,
@@ -169,21 +181,7 @@ def cmd_train_vqvae(args) -> int:
     )
     from vqvae_tpu_torch.train.vqvae_train import train_vqvae
 
-    vq_cfg = VQVAEConfig(
-        n_hiddens=args.n_hiddens,
-        n_residual_hiddens=args.n_residual_hiddens,
-        n_residual_layers=args.n_residual_layers,
-        embedding_dim=args.embedding_dim,
-        n_embeddings=args.n_embeddings,
-        beta=args.beta,
-        share_residual_weights=args.share_residual_weights,
-        compute_dtype=args.compute_dtype,
-        conv_precision=args.conv_precision,
-        ema_codebook=args.ema_codebook,
-        ema_decay=args.ema_decay,
-        quantizer_precision=args.quantizer_precision,
-        quantizer_impl=args.quantizer_impl,
-    )
+    vq_cfg = _vqvae_cfg_from_flags(args)
     train_cfg = TrainConfig(
         batch_size=args.batch_size,
         n_updates=args.n_updates,
@@ -230,10 +228,12 @@ def cmd_train_prior(args) -> int:
 
     from vqvae_tpu_torch.config import PixelCNNConfig, TrainConfig
     from vqvae_tpu_torch.data.datasets import load_dataset
-    from vqvae_tpu_torch.device import resolve_device
+    from vqvae_tpu_torch.parallel.distributed import maybe_initialize_distributed, shutdown_distributed
     from vqvae_tpu_torch.train.pixelcnn_train import train_pixelcnn
 
-    resolve_device(args.device)  # refuse a missing card before reading the data
+    mesh_cfg = _mesh_cfg(args)
+    # refuses a missing card before the data is read
+    device = maybe_initialize_distributed(mesh_cfg, args.device)
     train_ds, val_ds, _var, _info = load_dataset("LATENT_BLOCK", args.data_dir)
     cfg = PixelCNNConfig(
         input_dim=args.n_embeddings,
@@ -256,8 +256,11 @@ def cmd_train_prior(args) -> int:
         steps_per_dispatch=args.steps_per_dispatch,
     )
     save_path = os.path.join(args.results_dir, "latent_block_pixelcnn.npz")
-    train_pixelcnn(cfg, train_cfg, train_ds, val_ds, save_path=save_path, resume=args.resume,
-                   device=args.device)
+    try:
+        train_pixelcnn(cfg, train_cfg, train_ds, val_ds, save_path=save_path, resume=args.resume,
+                       device=device, mesh_cfg=mesh_cfg)
+    finally:
+        shutdown_distributed()
     return 0
 
 
@@ -322,6 +325,55 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_profile(args) -> int:
+    """A ``torch.profiler`` trace of training steps: one warm-up step outside
+    the trace, then ``profile_steps`` steps each under ``train_step_<i>``,
+    with a host read of the last loss inside the window."""
+    from vqvae_tpu_torch.config import TrainConfig
+    from vqvae_tpu_torch.data.datasets import load_dataset
+    from vqvae_tpu_torch.data.sampler import ReplacementSampler
+    from vqvae_tpu_torch.device import resolve_device
+    from vqvae_tpu_torch.train.vqvae_train import VQVAETrainer
+    from vqvae_tpu_torch.utils.profiling import annotate, profile_trace
+
+    resolve_device(args.device)  # refuse a missing card before reading the data
+    train_ds, _val, x_train_var, _info = load_dataset(args.dataset, args.data_dir)
+    trainer = VQVAETrainer(_vqvae_cfg_from_flags(args),
+                           TrainConfig(batch_size=args.batch_size, seed=args.seed),
+                           x_train_var=x_train_var, device=args.device)
+    state = trainer.init_state()
+    sampler = ReplacementSampler(len(train_ds), args.batch_size, seed=args.seed)
+    # the first cuDNN calls and the kernels' load happen outside the trace
+    state, m = trainer.step(state, train_ds.data[sampler.next_indices()])
+    float(m["loss"])
+    with profile_trace(args.trace_dir):
+        for i in range(args.profile_steps):
+            with annotate(f"train_step_{i}"):
+                state, m = trainer.step(state, train_ds.data[sampler.next_indices()])
+        float(m["loss"])  # a host read inside the window: the steps have run
+    print(f"Wrote a torch.profiler trace of {args.profile_steps} steps to {args.trace_dir}")
+    return 0
+
+
+def cmd_viz(args) -> int:
+    """Metric curves and reconstructions from a checkpoint (the notebook's
+    evaluation, visualization.ipynb cells 1-8)."""
+    from vqvae_tpu_torch.data.datasets import load_dataset
+    from vqvae_tpu_torch.pipelines.viz import load_model, plot_metrics, reconstruct, save_image_grid
+
+    model, metrics, hp = load_model(args.checkpoint, device=args.device,
+                                    fallback_cfg=_vqvae_flags_cfg(args))
+    out_dir = args.out_dir
+    if metrics:
+        print(f"Wrote {plot_metrics(metrics, f'{out_dir}/metrics.png')}")
+    _train, val, _var, _info = load_dataset(hp.get("dataset", "CIFAR10"), args.data_dir)
+    batch = val.data[: args.n_images]
+    recons = reconstruct(model, batch)
+    print(f"Wrote {save_image_grid(batch, f'{out_dir}/originals.png')}")
+    print(f"Wrote {save_image_grid(recons, f'{out_dir}/reconstructions.png')}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="vqvae_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -368,6 +420,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="updates per chunk, gathered on the device from the staged grids; "
                          "the losses are read back once a chunk")
     tp.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    _add_mesh_flags(tp, code_axis=False)
     tp.set_defaults(fn=cmd_train_prior)
 
     sm = sub.add_parser("sample", help="AR sample codes -> decode images")
@@ -394,6 +447,21 @@ def build_parser() -> argparse.ArgumentParser:
                     help="device slots per lockstep wave")
     sv.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     sv.set_defaults(fn=cmd_serve)
+
+    pf = sub.add_parser("profile", help="a torch.profiler trace of train steps")
+    _add_vqvae_flags(pf)
+    pf.add_argument("--trace_dir", type=str, default="results/trace")
+    pf.add_argument("--profile_steps", type=int, default=10)
+    pf.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    pf.set_defaults(fn=cmd_profile)
+
+    vz = sub.add_parser("viz", help="metric curves + reconstructions from a checkpoint")
+    _add_vqvae_flags(vz)
+    vz.add_argument("--checkpoint", type=str, required=True)
+    vz.add_argument("--out_dir", type=str, default="results/viz")
+    vz.add_argument("--n_images", type=int, default=16)
+    vz.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    vz.set_defaults(fn=cmd_viz)
     return p
 
 

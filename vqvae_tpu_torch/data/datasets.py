@@ -6,8 +6,10 @@ utils.py:14-16) and ``x_train_var`` the reference's ``np.var(train / 255)``
 on the pre-normalization pixels. CIFAR-10 reads the python-pickle batches
 under ``<root>/cifar-10-batches-py`` when present; otherwise it generates the
 same deterministic synthetic set as the JAX package, bit for bit.
-LATENT_BLOCK is the code grids ``extract-latents`` writes, the prior's
-training data. BLOCK is not ported yet.
+BLOCK is the reference's block-world trajectories (the user's own
+``<root>/randact_traj_length_100_n_trials_1000_n_contexts_1.npy``), each
+first frame resized to 32 x 32 by cv2's bicubic arithmetic. LATENT_BLOCK is
+the code grids ``extract-latents`` writes, the prior's training data.
 """
 
 from __future__ import annotations
@@ -95,6 +97,80 @@ def load_cifar10(root: str = "data") -> Tuple[ArrayDataset, ArrayDataset, float,
     return train, val, x_train_var, info
 
 
+_BLOCK_FILE = "randact_traj_length_100_n_trials_1000_n_contexts_1.npy"
+
+
+def _cv2_cubic_kernel(x: float, a: float = -0.75) -> float:
+    """OpenCV's bicubic interpolation kernel (a = -0.75).
+
+    cv2.INTER_CUBIC (reference datasets/block.py:16-17) uses the Keys cubic
+    with a = -0.75, not the a = -0.5 Catmull-Rom of PyTorch's and JAX's
+    "bicubic"/"cubic" resizes: the two give other pixels."""
+    ax = abs(x)
+    if ax <= 1.0:
+        return ((a + 2.0) * ax - (a + 3.0)) * ax * ax + 1.0
+    if ax < 2.0:
+        return (((ax - 5.0) * ax + 8.0) * ax - 4.0) * a
+    return 0.0
+
+
+def _cubic_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) resampling matrix of cv2.resize's INTER_CUBIC: the
+    half-pixel mapping src = (dst + 0.5) * (n_in / n_out) - 0.5, 4 taps an
+    output pixel, borders replicated. The resize is then two small matmuls
+    (separable), batched over frames."""
+    m = np.zeros((n_out, n_in), np.float64)
+    scale = n_in / n_out
+    for i in range(n_out):
+        fx = (i + 0.5) * scale - 0.5
+        sx = int(np.floor(fx))
+        t = fx - sx
+        for tap, w in enumerate(
+            (_cv2_cubic_kernel(1.0 + t), _cv2_cubic_kernel(t),
+             _cv2_cubic_kernel(1.0 - t), _cv2_cubic_kernel(2.0 - t))
+        ):
+            j = min(max(sx - 1 + tap, 0), n_in - 1)
+            m[i, j] += w
+    return m.astype(np.float32)
+
+
+def _resize_cubic(frame: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+    """cv2.INTER_CUBIC resize of one (H, W, C) frame or a batch (N, H, W, C)
+    of frames to ``hw`` (reference datasets/block.py:16-17)."""
+    x = np.asarray(frame, np.float32)
+    batched = x.ndim == 4
+    if not batched:
+        x = x[None]
+    mh = _cubic_resize_matrix(x.shape[1], hw[0])
+    mw = _cubic_resize_matrix(x.shape[2], hw[1])
+    out = np.einsum("oh,nhwc,pw->nopc", mh, x, mw, optimize=True)
+    return out if batched else out[0]
+
+
+def load_block(root: str = "data") -> Tuple[ArrayDataset, ArrayDataset, float, Dict]:
+    """BLOCK: an object array of trajectories whose frame is ``x[0][0][:, :, :3]``,
+    resized to 32 x 32, the last tenth for validation, labels all zero
+    (reference datasets/block.py:14-21, utils.py:28-46). The file is a
+    pickled object array in the reference's format, so it is read with
+    ``allow_pickle``: load only a file of your own."""
+    path = os.path.join(root, _BLOCK_FILE)
+    raw = np.load(path, allow_pickle=True)
+    frames = [np.asarray(x[0][0])[:, :, :3].astype(np.float32) for x in raw]
+    if len({f.shape for f in frames}) == 1:
+        resized = _resize_cubic(np.stack(frames), (32, 32))
+    else:
+        # frames of several sizes (the reference resizes frame by frame)
+        resized = np.stack([_resize_cubic(f, (32, 32)) for f in frames])
+    data = np.clip(resized, 0, 255).astype(np.uint8)
+    cutoff = len(data) // 10
+    train_u8, val_u8 = data[:-cutoff], data[-cutoff:]
+    x_train_var = float(np.var(train_u8.astype(np.float64) / 255.0))
+    train = ArrayDataset(_normalize_images(train_u8), np.zeros(len(train_u8), np.int32))
+    val = ArrayDataset(_normalize_images(val_u8), np.zeros(len(val_u8), np.int32))
+    info = {"name": "BLOCK", "path": path, "n_train": len(train), "n_val": len(val)}
+    return train, val, x_train_var, info
+
+
 _LATENT_FILE = "latent_e_indices.npy"
 _LATENT_N_VAL = 500
 
@@ -120,15 +196,15 @@ def load_latent_block(root: str = "data") -> Tuple[ArrayDataset, ArrayDataset, f
 
 
 def load_dataset(name: str, root: str = "data") -> Tuple[ArrayDataset, ArrayDataset, float, Dict]:
-    """Dataset dispatcher (reference utils.py:74-98): CIFAR10 and LATENT_BLOCK."""
+    """Dataset dispatcher (reference utils.py:74-98)."""
     key = name.upper()
     if key == "CIFAR10":
         return load_cifar10(root)
+    if key == "BLOCK":
+        return load_block(root)
     if key == "LATENT_BLOCK":
         return load_latent_block(root)
-    if key == "BLOCK":
-        raise ValueError("dataset 'BLOCK' is not ported yet; the port loads CIFAR10 and LATENT_BLOCK")
     raise ValueError(f"unknown dataset {name!r}; expected CIFAR10, BLOCK, or LATENT_BLOCK")
 
 
-__all__ = ["ArrayDataset", "load_cifar10", "load_dataset", "load_latent_block"]
+__all__ = ["ArrayDataset", "load_block", "load_cifar10", "load_dataset", "load_latent_block"]

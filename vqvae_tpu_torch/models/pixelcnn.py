@@ -33,6 +33,7 @@ from torch import nn
 
 from vqvae_tpu_torch.config import PixelCNNConfig
 from vqvae_tpu_torch.ops.conv import conv2d
+from vqvae_tpu_torch.ops.scatter import gather_rows
 
 
 def layer_geometry(i: int) -> Tuple[str, int, bool]:
@@ -145,7 +146,7 @@ class GatedPixelCNN(nn.Module):
     def forward(self, x: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W) integer codes; label: (B,) classes -> (B, H, W, input_dim) fp32 logits."""
         cfg = self.config
-        h = F.embedding(x.long(), self.embedding).to(self.compute_dtype).permute(0, 3, 1, 2)
+        h = gather_rows(self.embedding, x.long()).to(self.compute_dtype).permute(0, 3, 1, 2)
         x_v = x_h = h
         label = label.long()
         for layer in self.layers():

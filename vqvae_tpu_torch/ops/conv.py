@@ -20,9 +20,15 @@ values inside its scope (a sampler thread under the prior's precision, a
 decode thread under the VQ-VAE's). Re-entry from the same thread is allowed
 and restores the outer values on exit.
 
+The scope also holds cuDNN to its deterministic algorithms
+(``torch.backends.cudnn.deterministic``): the default weight-gradient
+algorithm adds with atomics, so two runs of the same step parted in their
+last bits. It is set on entry and restored on exit like the precision
+switches, never as a side effect of importing the module.
+
 The scope of a call covers its forward convolution only. Autograd runs the
 backward convolutions when ``backward()`` is called, and cuDNN reads the
-switch then, so code that takes gradients holds ``conv_fp32_precision``
+switches then, so code that takes gradients holds ``conv_fp32_precision``
 around the forward and ``backward()`` itself (``VQVAETrainer`` does).
 """
 
@@ -42,19 +48,21 @@ _PRECISION_LOCK = threading.RLock()
 
 @contextlib.contextmanager
 def conv_fp32_precision(precision: Optional[str]):
-    """Scope TF32 use of fp32 convolutions (cuDNN) and matmuls (cuBLAS) to a
-    ``with`` block, serialized across threads."""
+    """Scope TF32 use of fp32 convolutions (cuDNN) and matmuls (cuBLAS), and
+    cuDNN's deterministic algorithms, to a ``with`` block, serialized across
+    threads."""
     # torch's per-operator precision API only: mixing it with the legacy
     # allow_tf32 flags raises on a later read
     value = "ieee" if precision == "highest" else "tf32"
-    conv, matmul = torch.backends.cudnn.conv, torch.backends.cuda.matmul
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     with _PRECISION_LOCK:
-        prev = conv.fp32_precision, matmul.fp32_precision
-        conv.fp32_precision = matmul.fp32_precision = value
+        prev = cudnn.conv.fp32_precision, matmul.fp32_precision, cudnn.deterministic
+        cudnn.conv.fp32_precision = matmul.fp32_precision = value
+        cudnn.deterministic = True
         try:
             yield
         finally:
-            conv.fp32_precision, matmul.fp32_precision = prev
+            cudnn.conv.fp32_precision, matmul.fp32_precision, cudnn.deterministic = prev
 
 
 def _add_bias(y, b):

@@ -12,7 +12,8 @@ models/quantizer.py:29-76) on NHWC latents:
 
 ``nearest_code`` is the distance + argmin + gather step, differentiable like
 ``one_hot(argmin) @ codebook``: the codebook gets a scatter-add of the
-cotangent rows, z gets zero. Its forward dispatches on the tensor's device
+cotangent rows (``ops/scatter.py::scatter_add_rows``, the same bits on every
+run), z gets zero. Its forward dispatches on the tensor's device
 only: a CUDA tensor goes through the hand-written kernel
 (ops/cuda_quantizer.py), a CPU tensor through ``nearest_code_torch``. The
 config's ``quantizer_impl`` is not consulted in this slice, and the JAX
@@ -26,6 +27,7 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 
 from vqvae_tpu_torch.ops import cuda_quantizer
+from vqvae_tpu_torch.ops.scatter import scatter_add_rows
 
 
 class QuantizeOutput(NamedTuple):
@@ -182,8 +184,7 @@ class _NearestCode(torch.autograd.Function):
         (indices,) = ctx.saved_tensors
         # d(one_hot @ E)/dE: scatter-add of cotangent rows into assigned codes
         # (the JAX segment_sum, quantizer.py:171-179); z gets zero.
-        d_codebook = g_zq.new_zeros(ctx.codebook_shape, dtype=ctx.codebook_dtype)
-        d_codebook.index_add_(0, indices, g_zq.to(ctx.codebook_dtype))
+        d_codebook = scatter_add_rows(indices, g_zq.to(ctx.codebook_dtype), ctx.codebook_shape[0])
         return torch.zeros_like(g_zq), d_codebook, None
 
 

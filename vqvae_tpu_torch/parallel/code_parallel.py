@@ -34,6 +34,7 @@ import torch
 
 from vqvae_tpu_torch.ops import cuda_quantizer
 from vqvae_tpu_torch.ops.quantizer import nearest_code_values_torch
+from vqvae_tpu_torch.ops.scatter import scatter_add_rows
 from vqvae_tpu_torch.parallel.mesh import Mesh
 
 
@@ -70,7 +71,7 @@ def shard_codebook_grad(g_zq: torch.Tensor, win_shard: torch.Tensor, win_local: 
     a scatter-add of the cotangent rows it won into its (K_loc, D) rows."""
     mine = (win_shard == shard)[:, None]
     g = torch.where(mine, g_zq, torch.zeros_like(g_zq))
-    return g.new_zeros((k_local, g.shape[1])).index_add_(0, win_local, g)
+    return scatter_add_rows(win_local, g, k_local)
 
 
 def local_search(z_flat: torch.Tensor, codebook_local: torch.Tensor, precision: str):

@@ -70,6 +70,19 @@ class Mesh:
             dist.all_reduce(t, group=self._group(axis))
         return t
 
+    def size(self, axis: str) -> int:
+        return {"data": self.n_data, "code": self.n_code, "world": self.world}[axis]
+
+    def mean_(self, tensors: list, axis: str) -> None:
+        """All-reduce ``tensors`` in place by mean over ``axis``, as one flat
+        buffer (one collective for any number of them). No-op off the
+        distributed path."""
+        if not self.distributed or not tensors:
+            return
+        flat = self.psum(torch.cat([t.reshape(-1) for t in tensors]), axis).div_(self.size(axis))
+        parts = flat.split([t.numel() for t in tensors])
+        torch._foreach_copy_(tensors, [part.view_as(t) for part, t in zip(parts, tensors)])
+
     def gather_code(self, t: torch.Tensor) -> torch.Tensor:
         """All-gather ``t`` over the code group: (n_code, *t.shape), in code order."""
         if not self.distributed or self.n_code == 1:

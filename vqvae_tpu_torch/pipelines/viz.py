@@ -1,6 +1,5 @@
-"""Model loading, reconstruction and image grids (port of
-``vqvae_tpu/pipelines/viz.py``; ``smooth`` and ``plot_metrics`` come with a
-later slice).
+"""Model loading, metric curves, reconstruction and image grids (port of
+``vqvae_tpu/pipelines/viz.py``; the reference's visualization.ipynb as code).
 
 A model is rebuilt from the hyperparameters its checkpoint stores, never
 from the caller's flags (the reference notebook's ``load_model``). A file
@@ -8,6 +7,11 @@ without them (written with ``hyperparameters=None``) needs ``fallback_cfg``,
 which the CLI builds from its model flags; without one the load raises and
 names those flags. Loads are strict: a parameter tree of another
 configuration raises.
+
+Figures are written to files. scipy (``smooth``) and matplotlib
+(``plot_metrics``, ``save_image_grid``) are imported when those are called,
+so nothing else depends on them; without matplotlib the two raise an
+``ImportError`` that says so.
 """
 
 from __future__ import annotations
@@ -63,6 +67,62 @@ def load_prior(checkpoint_path: str, device: str = "cuda",
     return _load(checkpoint_path, device, PixelCNNConfig, GatedPixelCNN, fallback_cfg, PRIOR_FLAGS)
 
 
+def smooth(values, window: int = 201, order: int = 7) -> np.ndarray:
+    """Savitzky-Golay smoothing of a metric curve, as the notebook's
+    ``plot_metrics`` (cell 1). A series shorter than the window gets the
+    largest odd window that fits; one shorter than 3 is returned as it is.
+    (The JAX package takes ``max(5, (n // 2) * 2 + 1)``, one more than an
+    even ``n`` or a series under 5, which scipy refuses: its ``viz`` fails on
+    a history of 40 updates. For an odd ``n`` of 5 or more the two agree.)"""
+    from scipy.signal import savgol_filter
+
+    values = np.asarray(values, dtype=np.float64)
+    if len(values) < window:
+        window = len(values) - 1 + len(values) % 2
+        if window < 3:
+            return values
+        order = min(order, window - 2)
+    return savgol_filter(values, window, order)
+
+
+def _pyplot():
+    """matplotlib's pyplot on the file-only Agg backend, or an ImportError
+    that names what needs it."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise ImportError("plot_metrics and save_image_grid write PNGs with matplotlib, "
+                          "which is not installed") from e
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def plot_metrics(metrics: Dict, out_path: str) -> str:
+    """Raw and smoothed reconstruction-error, loss and perplexity curves in
+    one PNG (the notebook's ``plot_metrics``)."""
+    plt = _pyplot()
+    fig, axes = plt.subplots(1, 3, figsize=(15, 4))
+    for ax, key, title in zip(
+        axes,
+        ["recon_errors", "loss_vals", "perplexities"],
+        ["Reconstruction error", "Total loss", "Codebook perplexity"],
+    ):
+        vals = metrics.get(key, [])
+        if len(vals) > 0:
+            ax.plot(vals, alpha=0.3, label="raw")
+            ax.plot(smooth(vals), label="smoothed")
+        ax.set_title(title)
+        ax.set_xlabel("update")
+        ax.legend()
+    fig.tight_layout()
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    fig.savefig(out_path, dpi=120)
+    plt.close(fig)
+    return out_path
+
+
 def reconstruct(model: VQVAE, batch: np.ndarray) -> np.ndarray:
     """Encode -> quantize -> decode a batch (the notebook's ``reconstruct``)."""
     with torch.inference_mode():
@@ -74,13 +134,8 @@ def reconstruct(model: VQVAE, batch: np.ndarray) -> np.ndarray:
 def save_image_grid(
     images: np.ndarray, out_path: str, n_cols: int = 8, denormalize: bool = True
 ) -> str:
-    """Tile (N, H, W, 3) images (in [-1, 1] if ``denormalize``) into one PNG.
-    Needs matplotlib, imported here so that the rest of the module does not."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+    """Tile (N, H, W, 3) images (in [-1, 1] if ``denormalize``) into one PNG."""
+    plt = _pyplot()
     if denormalize:
         images = np.clip((images + 1.0) / 2.0, 0.0, 1.0)
     n = len(images)
@@ -99,4 +154,5 @@ def save_image_grid(
     return out_path
 
 
-__all__ = ["PRIOR_FLAGS", "VQVAE_FLAGS", "load_model", "load_prior", "reconstruct", "save_image_grid"]
+__all__ = ["PRIOR_FLAGS", "VQVAE_FLAGS", "load_model", "load_prior", "plot_metrics", "reconstruct",
+           "save_image_grid", "smooth"]

@@ -21,6 +21,19 @@ stay device scalars and cross to the host stacked, once per chunk, in
 ``train_pixelcnn``. ``steps`` and ``steps_by_index`` are a plain loop of K
 updates in the order of K calls of ``step``.
 
+Data parallelism (``MeshConfig``, ``parallel/``; the JAX trainer's 1-D mesh
+over ``data``): one process a rank, ``n_data`` ranks. A rank trains on its
+slice of every global batch of ``batch_size`` (the samplers' shard), holds
+the whole model and Adam state, and stages the whole grid set (as JAX
+replicates it). After ``backward()`` the gradients are all-reduced as one flat
+buffer by mean over the ranks, so every rank applies the same update and the
+replicas stay bit-identical. The losses a chunk reads back are means over the
+ranks, the global batch's, so the history and the best-validation decision
+agree on every rank. Rank 0 alone prints and writes the checkpoint; every
+rank reads it on resume. A run of one rank (the trivial mesh) skips every
+collective and keeps its bits. The prior has no codebook to shard, so
+``n_code > 1`` is refused.
+
 Draws. The JAX package folds a counter into a ``PRNGKey`` (the train step in
 ``generate``, the epoch for the per-epoch samples, from ``seed + 17``); the
 port cannot reproduce those bits and seeds a ``torch.Generator`` on the
@@ -40,13 +53,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vqvae_tpu_torch.config import PixelCNNConfig, TrainConfig
+from vqvae_tpu_torch.config import MeshConfig, PixelCNNConfig, TrainConfig
 from vqvae_tpu_torch.data.datasets import ArrayDataset
 from vqvae_tpu_torch.data.sampler import EpochSampler
 from vqvae_tpu_torch.device import resolve_device
 from vqvae_tpu_torch.models.pixelcnn import GatedPixelCNN
 from vqvae_tpu_torch.models.pixelcnn_sampler import CachedPixelCNNSampler
 from vqvae_tpu_torch.ops.conv import conv_fp32_precision
+from vqvae_tpu_torch.parallel.distributed import is_primary_host
+from vqvae_tpu_torch.parallel.mesh import make_mesh
 from vqvae_tpu_torch.train.checkpoint import (
     AsyncCheckpointer,
     check_hyperparameters_compatible,
@@ -82,10 +97,14 @@ class PixelCNNTrainer:
         cfg: PixelCNNConfig = PixelCNNConfig(),
         train_cfg: TrainConfig = TrainConfig(),
         device: str = "cuda",
+        mesh_cfg: MeshConfig = MeshConfig(),
     ):
         self.cfg = cfg
         self.train_cfg = train_cfg
         self.device = resolve_device(device)
+        if mesh_cfg.n_code != 1:
+            raise ValueError(f"the prior's mesh is 1-D over data; n_code must be 1, got {mesh_cfg.n_code}")
+        self.mesh = make_mesh(mesh_cfg.n_data, 1)
         self._device_data: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._device_val: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
@@ -113,9 +132,23 @@ class PixelCNNTrainer:
         with conv_fp32_precision(self.cfg.conv_precision):
             loss = self._loss(state.model, x, label)
             loss.backward()
+        self._reduce_gradients(state.model)
         state.optimizer.step()
         state.step += 1
         return loss.detach()
+
+    @torch.no_grad()
+    def _reduce_gradients(self, model: GatedPixelCNN) -> None:
+        """On a mesh of ranks: every gradient averaged over the ranks in one
+        flat all-reduce."""
+        self.mesh.mean_([p.grad for p in model.parameters() if p.grad is not None], "world")
+
+    def _global(self, losses: torch.Tensor) -> torch.Tensor:
+        """This rank's losses -> the global batch's: the mean over the data
+        ranks (a copy; nothing on one rank)."""
+        if not self.mesh.distributed or self.mesh.n_data == 1:
+            return losses
+        return self.mesh.psum(losses.clone(), "data").div_(self.mesh.n_data)
 
     def _to_device(self, array) -> torch.Tensor:
         """Codes and labels as int64 on the device (what the embedding
@@ -125,11 +158,12 @@ class PixelCNNTrainer:
         return array.to(self.device, dtype=torch.int64, non_blocking=True)
 
     def step(self, state: PixelCNNState, x, label) -> Tuple[PixelCNNState, torch.Tensor]:
-        """One update on codes ``x`` (B, H, W) with class ``label`` (B,)."""
-        return state, self._update(state, self._to_device(x), self._to_device(label))
+        """One update on codes ``x`` (B, H, W) with class ``label`` (B,), this
+        rank's rows of the global batch; the global batch's loss."""
+        return state, self._global(self._update(state, self._to_device(x), self._to_device(label)))
 
     def _run(self, state: PixelCNNState, batches) -> Tuple[PixelCNNState, torch.Tensor]:
-        return state, torch.stack([self._update(state, x, label) for x, label in batches])
+        return state, self._global(torch.stack([self._update(state, x, label) for x, label in batches]))
 
     def steps(self, state: PixelCNNState, xs, labels) -> Tuple[PixelCNNState, torch.Tensor]:
         """K = len(xs) updates on stacked batches (K, B, H, W) and labels
@@ -155,16 +189,16 @@ class PixelCNNTrainer:
 
     @torch.no_grad()
     def eval_loss(self, state: PixelCNNState, x, label) -> torch.Tensor:
-        """The mean cross-entropy of one batch, a device scalar."""
+        """The mean cross-entropy of one batch (the global batch's on a mesh), a device scalar."""
         with conv_fp32_precision(self.cfg.conv_precision):
-            return self._loss(state.model, self._to_device(x), self._to_device(label))
+            return self._global(self._loss(state.model, self._to_device(x), self._to_device(label)))
 
     @torch.no_grad()
     def eval_by_index(self, state: PixelCNNState, idx) -> torch.Tensor:
         """(K,) validation losses of the batches (K, B) gathered from the staged grids."""
         with conv_fp32_precision(self.cfg.conv_precision):
-            return torch.stack([self._loss(state.model, x, label)
-                                for x, label in self._gathered(self._device_val, idx)])
+            return self._global(torch.stack([self._loss(state.model, x, label)
+                                             for x, label in self._gathered(self._device_val, idx)]))
 
     # -- sampling ------------------------------------------------------------
 
@@ -200,6 +234,7 @@ def train_pixelcnn(
     save_path: Optional[str] = None,
     resume: bool = False,
     device: str = "cuda",
+    mesh_cfg: MeshConfig = MeshConfig(),
 ) -> Tuple[PixelCNNState, Dict[str, Any]]:
     """The best-validation epoch loop (reference gated_pixelcnn.py:153-169).
 
@@ -214,15 +249,22 @@ def train_pixelcnn(
     ``train_cfg.gen_samples``: 10 samples of each class after every epoch
     (reference gated_pixelcnn.py:143-149) through the cached decoder, from
     ``draw_seed(seed + 17, epoch)``; returned under "samples".
+    ``mesh_cfg``: the data ranks (a process group must be up for more than
+    one, ``parallel/distributed.py``); each rank draws its slice of every
+    global batch, only rank 0 prints and saves.
 
     Returns (state, {"history", "best_val_loss", "trainer", "samples"}).
     """
-    trainer = PixelCNNTrainer(cfg, train_cfg, device=device)
+    trainer = PixelCNNTrainer(cfg, train_cfg, device=device, mesh_cfg=mesh_cfg)
     state = trainer.init_state()
+    mesh = trainer.mesh
+    shard = dict(num_shards=mesh.n_data, shard_id=mesh.data)
     train_sampler = EpochSampler(len(train_ds), train_cfg.batch_size, seed=train_cfg.seed,
-                                 drop_last=True)
+                                 drop_last=True, **shard)
     val_sampler = EpochSampler(len(val_ds), train_cfg.batch_size, seed=train_cfg.seed + 1,
-                               shuffle=False, drop_last=True)
+                               shuffle=False, drop_last=True, **shard)
+    primary = is_primary_host()
+    verbose = verbose and primary
 
     best_loss, last_saved = math.inf, -1
     history = {"train_loss": [], "val_loss": []}
@@ -284,7 +326,7 @@ def train_pixelcnn(
 
             if train_cfg.save or cur <= best_loss:
                 best_loss, last_saved = min(cur, best_loss), epoch
-                if save_path:
+                if save_path and primary:
                     # a copy of the history: the writer thread serialises it
                     # while the next epoch appends
                     ckpt_writer.save(save_path, state, epoch,

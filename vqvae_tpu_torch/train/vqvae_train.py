@@ -8,7 +8,8 @@ step and, with an EMA codebook, the EMA update:
 
 On a CUDA device the forward's nearest-code search is the hand-written kernel
 (``ops/cuda_quantizer.py``: route "fma" for the "highest" quantizer mode,
-"mma" for "default"/"high"), its backward an ``index_add_`` scatter-add.
+"mma" for "default"/"high"), its backward a scatter-add in a fixed order
+(``ops/scatter.py::scatter_add_rows``).
 
 Nothing inside a chunk of updates reads the device back: the step counter
 and the optimizer's bias corrections live on the host, the per-step ``loss``,
@@ -22,9 +23,12 @@ runs the backward convolutions when ``backward()`` is called, and cuDNN reads
 the TF32 switch then, so a scope around the forward alone would leave the
 gradients of a "highest" run in TF32.
 
-``index_add_`` adds with atomics on a CUDA device, so the codebook gradient
-and the EMA sums can differ in their last bits from run to run there; on the
-CPU a run repeats bit for bit.
+A run repeats bit for bit on the card as on the CPU (the JAX package's
+contract, "same seed => bit-identical step"): the codebook gradient and the
+EMA sums add without atomics (``scatter_add_rows``), and the precision scope
+holds cuDNN to its deterministic algorithms through the backward
+(``ops/conv.py``). The assignment counts add ones with ``index_add_``: any
+order gives the same integer in fp32 below 2**24.
 
 Data and codebook parallelism (``MeshConfig``, ``parallel/``): one process a
 rank over an ``n_data x n_code`` mesh. A rank trains on its data row's slice
@@ -58,6 +62,7 @@ from vqvae_tpu_torch.device import resolve_device
 from vqvae_tpu_torch.models.vqvae import VQVAE
 from vqvae_tpu_torch.ops.conv import conv_fp32_precision
 from vqvae_tpu_torch.ops.quantizer import nearest_code, quantize
+from vqvae_tpu_torch.ops.scatter import scatter_add_rows
 from vqvae_tpu_torch.parallel.code_parallel import check_divisible, nearest_code_sharded
 from vqvae_tpu_torch.parallel.distributed import is_primary_host
 from vqvae_tpu_torch.parallel.mesh import make_mesh, put_global
@@ -223,11 +228,8 @@ class VQVAETrainer:
         mesh = self.mesh
         if not mesh.distributed:
             return
-        grads = [p.grad for p in model.parameters()
-                 if p.grad is not None and not (self.sharded and p is model.codebook)]
-        flat = mesh.psum(torch.cat([g.reshape(-1) for g in grads]), "world").div_(mesh.world)
-        parts = flat.split([g.numel() for g in grads])
-        torch._foreach_copy_(grads, [part.view_as(g) for part, g in zip(parts, grads)])
+        mesh.mean_([p.grad for p in model.parameters()
+                    if p.grad is not None and not (self.sharded and p is model.codebook)], "world")
         if self.sharded and model.codebook.grad is not None:
             mesh.psum(model.codebook.grad, "data").div_(mesh.n_data)
 
@@ -251,7 +253,7 @@ class VQVAETrainer:
             mine = (idx >= 0) & (idx < rows.stop - rows.start)
             z_flat = torch.where(mine[:, None], z_flat, torch.zeros_like(z_flat))
             idx = torch.where(mine, idx, torch.zeros_like(idx))
-        z_sums = torch.zeros_like(state.ema_means).index_add_(0, idx, z_flat)
+        z_sums = scatter_add_rows(idx, z_flat, state.ema_means.shape[0])
         mesh.psum(z_sums, "data")
         state.ema_counts.mul_(gamma).add_(counts, alpha=1.0 - gamma)
         state.ema_means.mul_(gamma).add_(z_sums, alpha=1.0 - gamma)
