@@ -120,6 +120,18 @@ stops the script with a non-zero exit and no result line:
    ``train-vqvae --dataset BLOCK``, 20 updates at batch 256 on a synthetic
    BLOCK file: finite metrics, 20 "fma" launches; (e) ``checked`` around a
    train step: nothing on a healthy batch, a NaN in the input named by op.
+16. the port's benchmark (``vqvae_tpu_torch/bench``): ``benchmark`` through
+   ``vqvae_tpu_torch.cli.main`` at its defaults, whose one JSON line must
+   hold finite positive rates (``value``, ``serving_value``, the measured
+   train figures at batch 256), MFUs in (0, 1.05] and the nvidia-smi line
+   of the card; then the tools at reduced repeats: the train bench (batch
+   32 and 256, fp32 and bf16), the prior's (batch 256, windows 5/20), the
+   sampler's (batch 256), the service's (4 clients x 6 requests, every one
+   answered with the size asked for), a ``torch.profiler`` window of the
+   train bench (0 ``Memcpy DtoH``, at most one ``Memcpy HtoD``: its indices) and
+   the search bench (``default`` and ``big_batch``, every mode; roofline
+   shares at most 1.05). The benchmark and the tools must launch both
+   kernels; their launches join the ``kernels`` line.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -142,6 +154,12 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+# the timing core and the search's bound are the package's (vqvae_tpu_torch/bench);
+# without the package beside this file the import fails and nothing is printed
+from vqvae_tpu_torch.bench.quantizer import bound, library_call  # noqa: E402
+from vqvae_tpu_torch.bench.timing import alternate, time_ms  # noqa: E402
+
 R4 = os.path.join(ROOT, "artifacts", "e2e_r4", "vqvae_e2e_r4_step4999.npz")
 R5 = os.path.join(ROOT, "artifacts", "e2e_r5", "vqvae_e2e_r5_step4999.npz")
 PRIOR_R5 = os.path.join(ROOT, "artifacts", "e2e_r5", "latent_block_pixelcnn.npz")
@@ -175,7 +193,6 @@ PRIOR_VAL_CE_JAX = (5.607869, 5.606247)
 PRIOR_VAL_CE_TOL = 0.1
 PRIOR_TRAIN_FLAGS = ()                # train-prior's defaults: 512 codes, dim 64, 15 layers, batch 32
 PRIOR_STEP_BATCHES = (32, 256)
-SPIN_CYCLES = 20_000_000              # device spin (about 11 ms) that lets the host queue ahead
 # phase 14: codebook splits (K, n_code), the parallel runs' global batch, a rank's time limit
 SHARD_SPLITS = ((512, 2), (512, 4), (512, 8), (600, 2))
 PARALLEL_BATCH = 256
@@ -190,55 +207,19 @@ PARALLEL_TIMEOUT_S = 300
 PRIOR_PARALLEL_BATCH = 256
 PRIOR_PAR_UPDATE1_ULPS = 2
 PRIOR_PAR_LATER_REL = 4e-6
+# phase 16: the bench tools at reduced repeats (the benchmark command runs at its defaults)
+BENCH_REPEATS = 3
+BENCH_TRAIN_BATCHES = (32, 256)
+BENCH_PRIOR_WINDOWS = (5, 20)         # a prior step at 256 is about 39 ms
+BENCH_SERVE = (4, 6)                  # clients x requests
+BENCH_QUANTIZER_CONFIGS = ("default", "big_batch")
+MFU_MAX = 1.05
 DEVICE = "cuda"
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
-
-
-def time_ms(fn, iters: int = 50, warmup: int = 5, queue_ahead: bool = True) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, from CUDA events.
-
-    With ``queue_ahead`` the card first spins, so the host has queued the
-    calls before the first one runs and the events time the card alone. The
-    spin must outlast the queueing: if it has ended by the time the last call
-    is queued, the timing is made again behind a spin twice as long, and the
-    function fails when no spin up to eight times the first is long enough.
-    Without ``queue_ahead`` a short kernel is timed at the host's pace.
-    """
-    for _ in range(warmup):
-        fn()
-    spin = SPIN_CYCLES
-    while True:
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        spun = torch.cuda.Event()
-        if queue_ahead:
-            torch.cuda._sleep(spin)
-        spun.record()
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        host_was_ahead = not spun.query()  # the card is still spinning
-        end.synchronize()
-        if host_was_ahead or not queue_ahead:
-            return start.elapsed_time(end) / iters
-        spin *= 2
-        check(spin <= 8 * SPIN_CYCLES, "time_ms: the host never queued its calls ahead of the card")
-
-
-def alternate(fns: dict) -> dict:
-    """Time every function in turn, then again in reverse order (a, b, b, a):
-    the faster of each one's two turns, in ms."""
-    names = list(fns)
-    times = {name: [] for name in names}
-    for name in names + names[::-1]:
-        times[name].append(time_ms(fns[name]))
-    return {name: min(ts) for name, ts in times.items()}
 
 
 def tensor_core_counts(cuda_quantizer, lib_path) -> dict:
@@ -254,25 +235,6 @@ def tensor_core_counts(cuda_quantizer, lib_path) -> dict:
         elif name is not None and "HMMA" in line:
             counts[name] += 1
     return counts
-
-
-def bound(n: int, k: int, d: int, mode: str):
-    """Least time (ms) for the search on an H100 SXM (published peaks,
-    ``vqvae_tpu_torch/utils/flops.py``), and what binds it.
-
-    Bytes: z and the codebook read once (fp32, as given), idx written once.
-    Operations: 2NKD multiply-adds; "high" does three bf16 products.
-    """
-    from vqvae_tpu_torch.utils.flops import H100_SXM
-
-    nbytes = 4 * (n * d + k * d + n)
-    flops = 2.0 * n * k * d
-    if mode == "highest":
-        t_ops = flops / H100_SXM.peak_fp32_flops
-    else:
-        t_ops = (3 if mode == "high" else 1) * flops / H100_SXM.peak_bf16_flops
-    t_bytes = nbytes / H100_SXM.hbm_bytes_per_sec
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def profile_device(tag: str, what: str, fn, top: int = 12) -> dict:
@@ -330,9 +292,10 @@ def profile_device(tag: str, what: str, fn, top: int = 12) -> dict:
         f"{g} {us / 1e3:.3f} ({us / sum(groups.values()):.3f})"
         for g, us in sorted(groups.items(), key=lambda kv: -kv[1])))
     dtoh = sum(c for name, c in count.items() if "Memcpy DtoH" in name)
-    print(f"[{tag}] device-to-host copies (Memcpy DtoH): {dtoh}")
+    htod = sum(c for name, c in count.items() if "Memcpy HtoD" in name)
+    print(f"[{tag}] device-to-host copies (Memcpy DtoH): {dtoh}; host-to-device (Memcpy HtoD): {htod}")
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "busy_share": busy / wall_us,
-            "launches": len(device_events), "dtoh": dtoh,
+            "launches": len(device_events), "dtoh": dtoh, "htod": htod,
             "groups_ms": {g: us / 1e3 for g, us in groups.items()}}
 
 
@@ -1375,6 +1338,128 @@ def prior_parallel_phase(smi: str, codes: np.ndarray, work: str) -> dict:
     return rows
 
 
+def bench_phase(smi: str) -> dict:
+    """Phase 16: the port's benchmark on the card through its entry points.
+    ``benchmark`` through ``vqvae_tpu_torch.cli.main`` (its one JSON line),
+    then the tools of ``vqvae_tpu_torch/bench`` at reduced repeats: the train
+    bench (batch 32 and 256, fp32 and bf16), the prior's (batch 256), the
+    sampler's (batch 256), the service's (4 clients x 6 requests), a profiled
+    window of the train bench (no device-to-host copy, one upload of
+    indices) and the quantizer bench (``default`` and ``big_batch``, every
+    mode). Every rate must be finite and positive, every MFU and roofline
+    share at most 1.05, and both kernels launched. Returns the rows and the
+    launches by route of the benchmark and of the tools (the quantizer
+    bench's kernel timings are not counted, as phase 5's are not)."""
+    import gc
+    import io
+    import threading
+
+    from vqvae_tpu_torch import cli
+    from vqvae_tpu_torch.bench import encode as encode_bench
+    from vqvae_tpu_torch.bench import prior as prior_bench
+    from vqvae_tpu_torch.bench import quantizer as quantizer_bench
+    from vqvae_tpu_torch.bench import sampler as sampler_bench
+    from vqvae_tpu_torch.bench import serve as serve_bench
+    from vqvae_tpu_torch.bench import train as train_bench
+    from vqvae_tpu_torch.config import VQVAEConfig
+    from vqvae_tpu_torch.ops import cuda_quantizer
+
+    def rate_ok(x) -> bool:
+        return isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+
+    def share_ok(x) -> bool:
+        return isinstance(x, (int, float)) and 0 < x <= MFU_MAX
+
+    rows, launches = {}, {}
+    kind = torch.cuda.get_device_name(0)
+    # what a long process carries into the phase (its host-bound rows read
+    # slower than the same tool in a fresh process)
+    print(f"[16] this process: {threading.active_count()} threads, {len(gc.get_objects())} objects "
+          f"tracked by the garbage collector, generation counts {gc.get_count()}")
+    cuda_quantizer.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        check(cli.main(["benchmark", "--device", DEVICE]) == 0, "benchmark did not exit 0")
+    launches["benchmark"] = dict(cuda_quantizer.launches_by_route)
+    lines = out.getvalue().strip().splitlines()
+    check(len(lines) == 1, f"benchmark printed {len(lines)} lines, not one")
+    line = rows["benchmark"] = json.loads(lines[0])
+    print(f"[16] benchmark ({smi}): {lines[0]}")
+    print(f"[16] benchmark kernel launches by route {launches['benchmark']}")
+    for key in ("value", "serving_value", "vs_baseline", "train_images_per_sec_per_chip_b256",
+                "train_bf16_images_per_sec_per_chip_b256", "device_ms_per_batch",
+                "serving_device_ms_per_batch", "busy_share", "serving_busy_share"):
+        check(rate_ok(line[key]), f"benchmark {key} = {line[key]!r}")
+    for key in ("mfu", "serving_mfu", "train_mfu_b256"):
+        check(share_ok(line[key]), f"benchmark {key} = {line[key]!r} is not in (0, {MFU_MAX}]")
+    check(kind in line["device"] and line["device"] == smi,
+          f"benchmark device {line['device']!r} does not name the card {smi!r}")
+
+    # the same serving point with the collector's tracked objects frozen
+    # (gc.freeze: no collection scans them), for the record
+    gc.collect()
+    gc.freeze()
+    frozen = encode_bench.bench_config(encode_bench.benchmark_configs(VQVAEConfig())["serving_value"], DEVICE)
+    gc.unfreeze()
+    print(f"[16] the serving point again with the tracked objects frozen: "
+          f"{frozen['images_per_sec']:.1f} images/s against {line['serving_value']} in the line ({smi})")
+    cuda_quantizer.reset_launch_counts()
+    rows["train"] = [train_bench.bench_batch(b, compute_dtype=dtype, device=DEVICE, repeats=BENCH_REPEATS)
+                     for dtype in ("float32", "bfloat16") for b in BENCH_TRAIN_BATCHES]
+    rows["prior"] = prior_bench.bench_batch(256, device=DEVICE, windows=BENCH_PRIOR_WINDOWS,
+                                            repeats=BENCH_REPEATS)
+    rows["sampler"] = sampler_bench.bench(256, repeats=BENCH_REPEATS, device=DEVICE)
+    rows["serve"] = serve_bench.run_bench(256, *BENCH_SERVE, device=DEVICE)
+    # a window of the train bench under the profiler: the indices are its one upload
+    run_timed = train_bench.staged_steps(
+        TRAIN_BATCH, train_bench.step_config(VQVAEConfig(), "highest", "float32", False), 20,
+        device=DEVICE)
+    run_timed(5)
+    prof = profile_device("16", f"a window of the train bench: 20 steps at batch {TRAIN_BATCH}, fp32",
+                          lambda: run_timed.run(20))
+    # where a batch of the benchmark's encode + quantize goes (the serving point)
+    cfg = encode_bench.benchmark_configs(VQVAEConfig())["serving_value"]
+    model = encode_bench.make_model(cfg, torch.device(DEVICE))
+    x = torch.randn((encode_bench.BATCH, 32, 32, 3), device=DEVICE)
+    encode_bench.encode_quantize(model, x)
+    rows["encode_profile"] = profile_device(
+        "16", f"10 encode+quantize calls at batch {encode_bench.BATCH}, bf16, default search",
+        lambda: [encode_bench.encode_quantize(model, x) for _ in range(10)])
+    launches["tools"] = dict(cuda_quantizer.launches_by_route)
+    rows["train_window_profile"] = prof
+    for r in rows["train"]:
+        print(f"[16] train {json.dumps(r)}")
+        check(rate_ok(r["images_per_sec_per_chip"]) and share_ok(r["train_mfu"]), f"train row {r}")
+        check(kind in r["device"], f"train row device {r['device']!r}")
+    print(f"[16] prior {json.dumps(rows['prior'])}")
+    check(rate_ok(rows["prior"]["grids_per_sec_per_chip"]) and share_ok(rows["prior"]["train_mfu"]),
+          f"prior row {rows['prior']}")
+    print(f"[16] sampler {json.dumps(rows['sampler'])}")
+    for name in ("naive_full_forward", "cached_incremental"):
+        check(rate_ok(rows["sampler"][name]["grids_per_sec"]), f"sampler {name} {rows['sampler'][name]}")
+    print(f"[16] serve {json.dumps(rows['serve'])}")
+    serve = rows["serve"]
+    check(serve["requests"] == BENCH_SERVE[0] * BENCH_SERVE[1], "the service did not answer every request")
+    check(rate_ok(serve["grids_per_sec"]) and 0 < serve["wave_occupancy"] <= 1
+          and serve["latency_p50_ms"] <= serve["latency_p99_ms"], f"serve row {serve}")
+    check(prof.get("dtoh") == 0, f"the train bench's window copied to the host: {prof}")
+    # the batches are gathered on the card: at most the window's one upload of indices
+    check(prof.get("htod", 2) <= 1, f"the train bench's window uploaded more than its indices: {prof}")
+    print(f"[16] tools' kernel launches by route {launches['tools']}")
+
+    rows["quantizer"] = [quantizer_bench.run(config, mode, DEVICE)
+                         for config in BENCH_QUANTIZER_CONFIGS for mode in MODES]
+    for r in rows["quantizer"]:
+        print(f"[16] quantizer {json.dumps(r)}")
+        check(all(rate_ok(ms) for ms in (r["ms"], r["plain_ms"], r["library_ms"], *r["route_ms"].values()))
+              and share_ok(r["roofline_share"]), f"quantizer row {r}")
+    for name, counts in launches.items():
+        check(counts["fma"] > 0 and counts["mma"] > 0, f"{name} did not launch both kernels: {counts}")
+    print(f"[16] card: {smi}")
+    rows["launches"] = launches
+    return rows
+
+
 def rest_phase(smi: str, dataset, codes: np.ndarray) -> dict:
     """Phase 15: the prior's ranks (a), ``profile`` (b), ``viz`` (c), training
     on BLOCK (d) and ``checked`` around a train step (e). Returns the numbers
@@ -1504,9 +1589,6 @@ def rest_phase(smi: str, dataset, codes: np.ndarray) -> dict:
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
-    if not os.path.isdir(os.path.join(ROOT, "vqvae_tpu_torch")):
-        print(f"chip_smoke: no vqvae_tpu_torch package beside {__file__}", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     from vqvae_tpu_torch.config import TrainConfig, VQVAEConfig
@@ -1694,19 +1776,13 @@ def main() -> int:
     for n, k, d in (MAIN_SHAPE, BENCH_SHAPE):
         z = torch.randn(n, d, device=dev, generator=gen)
         cb = torch.randn(k, d, device=dev, generator=gen)
-        e_sq = (cb * cb).sum(1)[None, :]
-        cb_bf16 = cb.to(torch.bfloat16)
         for mode in MODES:
             picked = cuda_quantizer.kernel_route(mode, d)
-            if mode == "default":
-                library = lambda: (e_sq - 2.0 * (z.to(torch.bfloat16) @ cb_bf16.T).float()).argmin(1)
-            else:
-                library = lambda: (e_sq - 2.0 * (z @ cb.T)).argmin(1)
             fns = {"plain": lambda: code_scores(z, cb, mode).argmin(1)}
             if picked == "mma":
                 fns["mma"] = lambda: cuda_quantizer.nearest_code_indices(z, cb, mode, "mma")
             fns["fma"] = lambda: cuda_quantizer.nearest_code_indices(z, cb, mode, "fma")
-            fns["library"] = library
+            fns["library"] = library_call(z, cb, mode)
             t = alternate(fns)  # plain, kernels, library, library, kernels, plain
             kernel = lambda: cuda_quantizer.nearest_code_indices(z, cb, mode)
             b_ms, b_by = bound(n, k, d, mode)
@@ -1957,6 +2033,9 @@ def main() -> int:
     t_rest = time.perf_counter()
     rest_rows = rest_phase(smi, dataset, codes)
     print(f"[15] phase 15 took {time.perf_counter() - t_rest:.1f} s; {json.dumps(rest_rows)}")
+    t_bench = time.perf_counter()
+    bench_rows = bench_phase(smi)
+    print(f"[16] phase 16 took {time.perf_counter() - t_bench:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     def parallel_launches(route):  # phase 14's main-path launches, every rank's
@@ -1965,6 +2044,9 @@ def main() -> int:
 
     def rest_launches(route):  # phase 15's launches: profile, viz, BLOCK, checked
         return sum(counts[route] for counts in rest_rows["launches"].values())
+
+    def bench_launches(route):  # phase 16's: the benchmark command and the tools
+        return sum(counts[route] for counts in bench_rows["launches"].values())
 
     def entry(name, source, route, mode, launches):
         row = main_rows[mode]
@@ -1978,10 +2060,11 @@ def main() -> int:
     # its launches summed over those paths, each counted from zero
     kernels = [
         entry("nearest_code_mma", "vqvae_tpu_torch/csrc/nearest_code_mma.cu", "mma", "default",
-              launches_main["mma"] + launches_bf16["mma"] + parallel_launches("mma") + rest_launches("mma")),
+              launches_main["mma"] + launches_bf16["mma"] + parallel_launches("mma") + rest_launches("mma")
+              + bench_launches("mma")),
         entry("nearest_code", "vqvae_tpu_torch/csrc/nearest_code.cu", "fma", "highest",
               launches_rec["fma"] + launches_fp32["fma"] + launches_ema["fma"] + parallel_launches("fma")
-              + rest_launches("fma")),
+              + rest_launches("fma") + bench_launches("fma")),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path was never launched")
     print(json.dumps({"kernels": kernels}))

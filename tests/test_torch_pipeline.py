@@ -217,11 +217,13 @@ names = [m.name for m in pkgutil.walk_packages(vqvae_tpu_torch.__path__, "vqvae_
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "optax", "flax", "vqvae_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "flax", "vqvae_tpu", "tools"))
 print(len(names), "modules")
 assert len(names) >= 24, names
 for name in ("train.optim", "train.vqvae_train", "train.metrics", "data.sampler", "utils.faults",
-             "models.pixelcnn", "models.pixelcnn_sampler", "pipelines.sample", "pipelines.serve"):
+             "models.pixelcnn", "models.pixelcnn_sampler", "pipelines.sample", "pipelines.serve",
+             "bench", "bench.__main__", "bench.timing", "bench.encode", "bench.train", "bench.prior",
+             "bench.quantizer", "bench.sampler", "bench.serve"):
     assert "vqvae_tpu_torch." + name in names, name
 assert not bad, bad
 """

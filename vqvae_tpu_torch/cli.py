@@ -7,6 +7,7 @@
     python -m vqvae_tpu_torch.cli serve --prior-checkpoint ... [--vqvae-checkpoint ...] [--device cpu]
     python -m vqvae_tpu_torch.cli profile [--trace_dir results/trace --profile_steps 10 ...] [--device cpu]
     python -m vqvae_tpu_torch.cli viz --checkpoint results/...npz [--out_dir results/viz] [--device cpu]
+    python -m vqvae_tpu_torch.cli benchmark [--iters_lo 20 --iters_hi 120 --repeats 3] [--device cpu]
 
 Flag names and defaults are the JAX package's (and the reference's,
 main.py:16-30, gated_pixelcnn.py:27-42). ``train-vqvae`` takes the JAX
@@ -22,8 +23,9 @@ its checkpoint's stored hyperparameters; for a file that stores none they
 take the model flags, which must then be given (the command fails and names
 them otherwise). ``train-prior`` trains on ``<data_dir>/latent_e_indices.npy``
 (what ``extract-latents`` writes) and saves ``<results_dir>/latent_block_pixelcnn.npz``.
+``benchmark`` prints the port's benchmark line (``vqvae_tpu_torch/bench``,
+the counterpart of the JAX command's ``bench.py``) at the model flags' widths.
 Every command runs on the CUDA card unless ``--device cpu`` is given.
-``benchmark`` comes with the port's benchmark script.
 """
 
 from __future__ import annotations
@@ -374,6 +376,18 @@ def cmd_viz(args) -> int:
     return 0
 
 
+def cmd_benchmark(args) -> int:
+    """One JSON line: encode + quantize images/s at batch 1,024 in bench.py's two
+    points and the train step at batch 256, measured (``vqvae_tpu_torch/bench``)."""
+    import json
+
+    from vqvae_tpu_torch.bench import run
+
+    print(json.dumps(run(_vqvae_cfg_from_flags(args), args.device, args.iters_lo, args.iters_hi,
+                         args.repeats)))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="vqvae_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -462,6 +476,14 @@ def build_parser() -> argparse.ArgumentParser:
     vz.add_argument("--n_images", type=int, default=16)
     vz.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     vz.set_defaults(fn=cmd_viz)
+
+    from vqvae_tpu_torch.bench import add_window_flags
+
+    bm = sub.add_parser("benchmark", help="the port's benchmark line (vqvae_tpu_torch/bench)")
+    _add_vqvae_flags(bm)
+    add_window_flags(bm)
+    bm.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    bm.set_defaults(fn=cmd_benchmark)
     return p
 
 
