@@ -132,6 +132,16 @@ stops the script with a non-zero exit and no result line:
    the search bench (``default`` and ``big_batch``, every mode; roofline
    shares at most 1.05). The benchmark and the tools must launch both
    kernels; their launches join the ``kernels`` line.
+17. the convergence fleets' tool (``vqvae_tpu_torch/bench/parity.py``):
+   ``run`` through ``parity.main`` for 300 fp32 updates and 300 bf16
+   updates of the fleets' configuration into a temporary directory: the
+   files' keys and shapes, finite curves, the last 100 updates' recon mean
+   below the first 100's, exactly 300 "fma" and 300 "mma" launches; ``report``
+   on those two runs against the committed reference and JAX fleets returns
+   every field and writes nothing under ``artifacts/`` or
+   ``artifacts_torch/`` (both listed before and after); and the config's
+   ``quantizer_impl`` on the card: ``quantize`` under "jnp" launches nothing
+   and gives the plain version's bits, "auto" and "pallas" one kernel each.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -214,6 +224,8 @@ BENCH_PRIOR_WINDOWS = (5, 20)         # a prior step at 256 is about 39 ms
 BENCH_SERVE = (4, 6)                  # clients x requests
 BENCH_QUANTIZER_CONFIGS = ("default", "big_batch")
 MFU_MAX = 1.05
+# phase 17: updates of each of its two runs, the final window compared with the first
+PARITY_STEPS = 300
 DEVICE = "cuda"
 
 
@@ -1460,6 +1472,119 @@ def bench_phase(smi: str) -> dict:
     return rows
 
 
+def listing(path: str) -> dict:
+    """Every file under ``path``: relative name -> (size, mtime in ns)."""
+    files = {}
+    for base, _dirs, names in os.walk(path):
+        for name in names:
+            st = os.stat(os.path.join(base, name))
+            files[os.path.relpath(os.path.join(base, name), path)] = (st.st_size, st.st_mtime_ns)
+    return files
+
+
+def parity_phase(smi: str) -> dict:
+    """Phase 17: the fleets' ``run`` (fp32, route "fma"; bf16, route "mma")
+    for ``PARITY_STEPS`` updates each and ``report`` on them against the
+    committed fleets, then ``quantizer_impl`` on the card. Returns the rows and
+    the launches by route of each run and of the dispatch check."""
+    import tempfile
+    from functools import partial
+
+    from vqvae_tpu_torch.bench import parity
+    from vqvae_tpu_torch.config import QUANTIZER_IMPLS
+    from vqvae_tpu_torch.ops import cuda_quantizer
+    from vqvae_tpu_torch.ops.quantizer import compare_assignments, nearest_code, nearest_code_torch, quantize
+
+    records = {d: os.path.join(ROOT, d) for d in ("artifacts", "artifacts_torch")}
+    before = {d: listing(path) for d, path in records.items()}
+    rows, launches = {"runs": {}}, {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for mode, flags, route in (("fp32", (), "fma"), ("bf16", parity.BF16_FLAGS, "mma")):
+            out = os.path.join(tmp, parity.port_file(mode, 1))
+            cuda_quantizer.reset_launch_counts()
+            t0 = time.perf_counter()
+            check(parity.main(["run", "--steps", str(PARITY_STEPS), "--seed", "1", "--out", out,
+                               "--device", DEVICE, *flags]) == 0, f"parity run {mode} did not exit 0")
+            wall = time.perf_counter() - t0
+            launches[mode] = dict(cuda_quantizer.launches_by_route)
+            other = "mma" if route == "fma" else "fma"
+            check(launches[mode][route] == PARITY_STEPS and launches[mode][other] == 0,
+                  f"parity run {mode} launched {launches[mode]}, not {PARITY_STEPS} on {route}")
+            with np.load(out) as d:
+                keys = set(d.files)
+                curves = {key: d[key] for key in parity.CURVES}
+                device, x_var = str(d["device"]), float(d["x_train_var"])
+            want = set(parity.CURVES) | {"x_train_var", "device", "wall_seconds", "conv_precision",
+                                         "compute_dtype", "quantizer_precision", "ema_codebook"}
+            check(keys == want, f"parity run {mode} wrote the keys {sorted(keys)}")
+            for key, c in curves.items():
+                check(c.shape == (PARITY_STEPS,) and c.dtype == np.float32 and np.isfinite(c).all(),
+                      f"parity run {mode}: {key} {c.shape} {c.dtype} is not {PARITY_STEPS} finite float32")
+            recon = curves["recon_errors"]
+            first, last = float(recon[:parity.WINDOW].mean()), float(recon[-parity.WINDOW:].mean())
+            check(last < first, f"parity run {mode}: recon {first} over the first 100 updates, {last} over the last")
+            check(device == smi and x_var > 0, f"parity run {mode}: device {device!r}, x_train_var {x_var}")
+            rows["runs"][mode] = {"wall_s": wall, "recon_first_window": first, "recon_last_window": last,
+                                  "launches": launches[mode]}
+            print(f"[17] parity run {mode}: {PARITY_STEPS} updates in {wall:.1f} s, recon {first:.4f} over the "
+                  f"first 100 -> {last:.4f} over the last 100, launches {launches[mode]} ({smi})")
+        t0 = time.perf_counter()
+        payload = parity.report(tmp, records["artifacts"])
+        print(f"[17] report on the two runs took {time.perf_counter() - t0:.1f} s")
+    check(set(payload) == {"criterion", "window", "port_dir", "ref_dir", "runs", "modes"}
+          and len(payload["runs"]) == 2, f"report returned {sorted(payload)}")
+    fields = set(parity._metric_verdict([1.0, 2.0], [1.5, 2.5]))
+    for mode in ("fp32", "bf16"):
+        entry = payload["modes"].get(mode)
+        check(entry is not None and entry["n"] == 1, f"report holds no {mode} run")
+        for side in ("vs_reference", "vs_jax"):
+            for name in ("recon", "total_loss", "perplexity"):
+                check(set(entry[side][name]) == fields, f"report {mode} {side} {name}: {sorted(entry[side][name])}")
+            check(set(entry["embedding_loss"][side]) == fields,
+                  f"report {mode} embedding_loss {side}: {entry['embedding_loss'][side]}")
+            check(isinstance(entry["ok"][side], bool), f"report {mode} ok {side}: {entry['ok']}")
+        check(entry["vs_reference"]["recon"]["n_torch"] == 79
+              and entry["vs_jax"]["recon"]["n_torch"] == (71 if mode == "fp32" else 20),
+              f"report {mode} read {entry['vs_reference']['recon']['n_torch']} reference and "
+              f"{entry['vs_jax']['recon']['n_torch']} JAX files")
+    after = {d: listing(path) for d, path in records.items()}
+    check(after == before, "phase 17 wrote under artifacts/ or artifacts_torch/")
+
+    # quantizer_impl on the card, at the fleets' search shape (batch 32 -> 2,048 rows)
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    z = torch.randn(32, 8, 8, 64, device=DEVICE, generator=gen)
+    cb = torch.randn(512, 64, device=DEVICE, generator=gen)
+    impl_rows = {}
+    launches["impl"] = {route: 0 for route in cuda_quantizer.ROUTES}
+    for precision in ("highest", "default"):
+        z_ref, idx_ref = nearest_code_torch(z.reshape(-1, 64), cb, precision)
+        for impl in QUANTIZER_IMPLS:
+            cuda_quantizer.reset_launch_counts()
+            q = quantize(z, cb, 0.25, precision=precision, search=partial(nearest_code, impl=impl))
+            torch.cuda.synchronize()
+            n = dict(cuda_quantizer.launches_by_route)
+            idx = q.indices.reshape(-1)
+            if impl == "jnp":
+                check(sum(n.values()) == 0, f"quantize under jnp launched {n}")
+                # z_q is the straight-through z + (z_q - z) of the plain version's rows
+                check(torch.equal(idx, idx_ref) and torch.equal(q.z_q, z + (z_ref.reshape(z.shape) - z)),
+                      f"quantize under jnp ({precision}) is not the plain version's bits")
+                mism = 0
+            else:
+                check(sum(n.values()) == 1 and n[cuda_quantizer.kernel_route(precision, 64)] == 1,
+                      f"quantize under {impl} ({precision}) launched {n}, not one kernel")
+                mism, near, _gap = compare_assignments(z.reshape(-1, 64), cb, idx, idx_ref, precision)
+                check(mism == near, f"quantize under {impl} ({precision}): {mism - near} departures beyond near-ties")
+                for route, c in n.items():
+                    launches["impl"][route] += c
+            impl_rows[f"{impl}/{precision}"] = {"launches": n, "mismatches_vs_plain": mism}
+    rows["impl"] = impl_rows
+    print(f"[17] quantizer_impl on the card: {json.dumps(impl_rows)}")
+    rows["launches"] = launches
+    return rows
+
+
 def rest_phase(smi: str, dataset, codes: np.ndarray) -> dict:
     """Phase 15: the prior's ranks (a), ``profile`` (b), ``viz`` (c), training
     on BLOCK (d) and ``checked`` around a train step (e). Returns the numbers
@@ -2036,6 +2161,9 @@ def main() -> int:
     t_bench = time.perf_counter()
     bench_rows = bench_phase(smi)
     print(f"[16] phase 16 took {time.perf_counter() - t_bench:.1f} s")
+    t_parity = time.perf_counter()
+    parity_rows = parity_phase(smi)
+    print(f"[17] phase 17 took {time.perf_counter() - t_parity:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     def parallel_launches(route):  # phase 14's main-path launches, every rank's
@@ -2047,6 +2175,9 @@ def main() -> int:
 
     def bench_launches(route):  # phase 16's: the benchmark command and the tools
         return sum(counts[route] for counts in bench_rows["launches"].values())
+
+    def parity_launches(route):  # phase 17's: the two runs and quantize under auto and pallas
+        return sum(counts[route] for counts in parity_rows["launches"].values())
 
     def entry(name, source, route, mode, launches):
         row = main_rows[mode]
@@ -2061,10 +2192,10 @@ def main() -> int:
     kernels = [
         entry("nearest_code_mma", "vqvae_tpu_torch/csrc/nearest_code_mma.cu", "mma", "default",
               launches_main["mma"] + launches_bf16["mma"] + parallel_launches("mma") + rest_launches("mma")
-              + bench_launches("mma")),
+              + bench_launches("mma") + parity_launches("mma")),
         entry("nearest_code", "vqvae_tpu_torch/csrc/nearest_code.cu", "fma", "highest",
               launches_rec["fma"] + launches_fp32["fma"] + launches_ema["fma"] + parallel_launches("fma")
-              + rest_launches("fma") + bench_launches("fma")),
+              + rest_launches("fma") + bench_launches("fma") + parity_launches("fma")),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path was never launched")
     print(json.dumps({"kernels": kernels}))

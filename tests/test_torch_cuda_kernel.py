@@ -187,3 +187,33 @@ def test_cuda_wrapper_rejects_bad_inputs_on_card():
         cuda_quantizer.nearest_code_indices(z, cb[:, :3].contiguous())
     with pytest.raises(ValueError, match="precision"):
         cuda_quantizer.nearest_code_indices(z, cb, "fast")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", MODES)
+def test_jnp_launches_no_kernel_on_card(precision):
+    """``quantizer_impl`` on the card: under "jnp" the search is the plain
+    version, bit for bit, and no kernel is launched; under "auto" and
+    "pallas" one kernel is launched (the near-tie rule against the plain
+    version)."""
+    from functools import partial
+
+    from vqvae_tpu_torch.ops.quantizer import quantize
+
+    dev = _card()
+    z, cb = (t.to(dev) for t in _inputs(2048, 512, 64, seed=11))
+    zq_ref, idx_ref = nearest_code_torch(z, cb, precision)
+    before = cuda_quantizer.launches
+    zq, idx = nearest_code(z, cb, precision, impl="jnp")
+    q = quantize(z.reshape(32, 8, 8, 64), cb, 0.25, precision=precision, search=partial(nearest_code, impl="jnp"))
+    torch.cuda.synchronize()
+    assert cuda_quantizer.launches == before
+    assert torch.equal(idx, idx_ref) and torch.equal(zq, zq_ref)
+    assert torch.equal(q.indices.reshape(-1), idx_ref)
+    for impl in ("auto", "pallas"):
+        before = cuda_quantizer.launches
+        _zq, idx = nearest_code(z, cb, precision, impl=impl)
+        torch.cuda.synchronize()
+        assert cuda_quantizer.launches == before + 1, impl
+        mism, near, gap = compare_assignments(z, cb, idx, idx_ref, precision)
+        assert mism == near, (impl, mism, near, gap)

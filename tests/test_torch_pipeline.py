@@ -223,7 +223,7 @@ assert len(names) >= 24, names
 for name in ("train.optim", "train.vqvae_train", "train.metrics", "data.sampler", "utils.faults",
              "models.pixelcnn", "models.pixelcnn_sampler", "pipelines.sample", "pipelines.serve",
              "bench", "bench.__main__", "bench.timing", "bench.encode", "bench.train", "bench.prior",
-             "bench.quantizer", "bench.sampler", "bench.serve"):
+             "bench.quantizer", "bench.sampler", "bench.serve", "bench.parity"):
     assert "vqvae_tpu_torch." + name in names, name
 assert not bad, bad
 """

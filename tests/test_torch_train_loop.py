@@ -196,7 +196,7 @@ def test_cli_train_vqvae_then_extract_latents(tmp_path, capsys):
         "vqvae_X_step0.npz", "vqvae_X_step3.npz", "vqvae_X_step6.npz"]
     ckpt = str(results / "vqvae_X_step6.npz")
     hp = peek_hyperparameters(ckpt)
-    assert hp["ema_codebook"] is True and hp["quantizer_impl"] == "pallas"  # kept, not used
+    assert hp["ema_codebook"] is True and hp["quantizer_impl"] == "pallas"  # kept in the file
     model, metrics, _hp = load_model(ckpt, device="cpu")
     assert len(metrics["loss_vals"]) == 7 and model.config.n_embeddings == 64
     out = tmp_path / "latents.npy"

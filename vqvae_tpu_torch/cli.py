@@ -88,8 +88,9 @@ def _add_vqvae_flags(p: argparse.ArgumentParser) -> None:
                         "training arithmetic); moot under --compute_dtype bfloat16")
     p.add_argument("--quantizer_impl", type=str, default="auto",
                    choices=["auto", "pallas", "jnp"],
-                   help="stored in the checkpoint for the JAX package; the port "
-                        "dispatches on the tensor's device only")
+                   help="the search's forward: auto and pallas launch the hand-written "
+                        "kernel on the card, jnp the plain matmul + argmin; a loaded "
+                        "checkpoint searches as this flag says, whatever it stores")
 
 
 def _add_mesh_flags(p: argparse.ArgumentParser, code_axis: bool = True) -> None:
@@ -216,7 +217,8 @@ def cmd_extract_latents(args) -> int:
     from vqvae_tpu_torch.pipelines.viz import load_model
 
     model, _metrics, _hp = load_model(args.checkpoint, device=args.device,
-                                      fallback_cfg=_vqvae_flags_cfg(args))
+                                      fallback_cfg=_vqvae_flags_cfg(args),
+                                      quantizer_impl=args.quantizer_impl)
     train_ds, val_ds, _var, _info = load_dataset(args.dataset, args.data_dir)
     out = args.out or f"{args.data_dir}/latent_e_indices.npy"
     data = np.concatenate([train_ds.data, val_ds.data])
@@ -275,7 +277,8 @@ def cmd_sample(args) -> int:
     from vqvae_tpu_torch.pipelines.viz import load_model, load_prior
 
     vq_model, _m, _hp = load_model(args.vqvae_checkpoint, device=args.device,
-                                   fallback_cfg=_vqvae_flags_cfg(args))
+                                   fallback_cfg=_vqvae_flags_cfg(args),
+                                   quantizer_impl=args.quantizer_impl)
     prior, _m, _hp = load_prior(args.prior_checkpoint, device=args.device,
                                 fallback_cfg=_prior_flags_cfg(args))
     # class-conditional labels cycling 0..9 (the reference draws 10 of each,
@@ -310,7 +313,8 @@ def cmd_serve(args) -> int:
     if args.vqvae_checkpoint:
         vq_model, _m, _hp = load_model(
             args.vqvae_checkpoint, device=args.device,
-            fallback_cfg=_vqvae_flags_cfg(args))
+            fallback_cfg=_vqvae_flags_cfg(args),
+            quantizer_impl=args.quantizer_impl)
         decode_fn = lambda codes: decode_code_grids(vq_model, codes)  # noqa: E731
 
     service.start()
@@ -364,7 +368,8 @@ def cmd_viz(args) -> int:
     from vqvae_tpu_torch.pipelines.viz import load_model, plot_metrics, reconstruct, save_image_grid
 
     model, metrics, hp = load_model(args.checkpoint, device=args.device,
-                                    fallback_cfg=_vqvae_flags_cfg(args))
+                                    fallback_cfg=_vqvae_flags_cfg(args),
+                                    quantizer_impl=args.quantizer_impl)
     out_dir = args.out_dir
     if metrics:
         print(f"Wrote {plot_metrics(metrics, f'{out_dir}/metrics.png')}")

@@ -26,6 +26,14 @@ class _DictMixin:
         return dataclasses.replace(self, **kw)
 
 
+QUANTIZER_IMPLS = ("auto", "pallas", "jnp")
+
+
+def check_quantizer_impl(impl: str) -> None:
+    if impl not in QUANTIZER_IMPLS:
+        raise ValueError(f"quantizer_impl must be one of {', '.join(QUANTIZER_IMPLS)}, got {impl!r}")
+
+
 @dataclass(frozen=True)
 class VQVAEConfig(_DictMixin):
     """VQ-VAE model hyperparameters (reference defaults: main.py:16-25)."""
@@ -47,9 +55,9 @@ class VQVAEConfig(_DictMixin):
     # reference's training arithmetic); "high" and "default" allow TF32.
     # Irrelevant when compute_dtype="bfloat16".
     conv_precision: str = "highest"
-    # Kept so hyperparameter dicts round-trip with the JAX package. The port
-    # does not dispatch on it: a CUDA tensor always goes through the
-    # hand-written kernel, a CPU tensor through the plain version.
+    # The nearest-code search's forward (ops/quantizer.py): "auto" and
+    # "pallas" launch the hand-written kernel on the card, "jnp" takes the
+    # plain matmul + argmin there; a CPU tensor takes the plain version.
     quantizer_impl: str = "auto"
     # Distance arithmetic in the quantizer: "highest" (fp32), "high" (bf16x3
     # split product), "default" (bf16 operands, fp32 accumulation; near-tie
@@ -62,6 +70,9 @@ class VQVAEConfig(_DictMixin):
     ema_codebook: bool = False
     ema_decay: float = 0.99
     ema_epsilon: float = 1e-5
+
+    def __post_init__(self):
+        check_quantizer_impl(self.quantizer_impl)
 
 
 @dataclass(frozen=True)
@@ -155,4 +166,5 @@ class MeshConfig(_DictMixin):
                              f"{self.data_axis!r} and {self.code_axis!r}")
 
 
-__all__ = ["MeshConfig", "PixelCNNConfig", "VQVAEConfig", "TrainConfig"]
+__all__ = ["MeshConfig", "PixelCNNConfig", "QUANTIZER_IMPLS", "VQVAEConfig", "TrainConfig",
+           "check_quantizer_impl"]

@@ -14,6 +14,7 @@ it runs the decoder on the fp32 codebook rows.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
@@ -24,7 +25,7 @@ from vqvae_tpu_torch.models.decoder import Decoder
 from vqvae_tpu_torch.models.encoder import Encoder
 from vqvae_tpu_torch.models.initializers import codebook_init_, torch_conv_init_
 from vqvae_tpu_torch.ops.conv import conv2d
-from vqvae_tpu_torch.ops.quantizer import QuantizeOutput, quantize
+from vqvae_tpu_torch.ops.quantizer import QuantizeOutput, nearest_code, quantize
 
 
 def _nchw(x):
@@ -73,7 +74,7 @@ class VQVAE(nn.Module):
         cfg = self.config
         return quantize(
             z_e, self.codebook, cfg.beta, ema=cfg.ema_codebook,
-            precision=cfg.quantizer_precision,
+            precision=cfg.quantizer_precision, search=partial(nearest_code, impl=cfg.quantizer_impl),
         )
 
     def codes(self, x) -> torch.Tensor:

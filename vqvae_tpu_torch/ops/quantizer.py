@@ -13,11 +13,19 @@ models/quantizer.py:29-76) on NHWC latents:
 ``nearest_code`` is the distance + argmin + gather step, differentiable like
 ``one_hot(argmin) @ codebook``: the codebook gets a scatter-add of the
 cotangent rows (``ops/scatter.py::scatter_add_rows``, the same bits on every
-run), z gets zero. Its forward dispatches on the tensor's device
-only: a CUDA tensor goes through the hand-written kernel
-(ops/cuda_quantizer.py), a CPU tensor through ``nearest_code_torch``. The
-config's ``quantizer_impl`` is not consulted in this slice, and the JAX
-package's ``_auto_impl`` thresholds (TPU timings) are not carried over.
+run), z gets zero. Its forward is chosen by ``impl`` (the config's
+``quantizer_impl``), as the JAX ``_dispatch_forward`` chooses:
+
+    "auto", "pallas"  a CUDA tensor launches the hand-written kernel
+                      (ops/cuda_quantizer.py, ``kernel_route``'s route) or
+                      raises; a CPU tensor takes ``nearest_code_torch``, the
+                      kernel's arithmetic (JAX runs its kernel in interpret
+                      mode off the TPU)
+    "jnp"             ``nearest_code_torch`` on any device: the framework's
+                      unfused matmul + argmin, no kernel launch
+
+The JAX package's ``_auto_impl`` thresholds are TPU timings and are not
+carried over: "auto" is the kernel on the card.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
+from vqvae_tpu_torch.config import check_quantizer_impl
 from vqvae_tpu_torch.ops import cuda_quantizer
 from vqvae_tpu_torch.ops.scatter import scatter_add_rows
 
@@ -167,13 +176,18 @@ def compare_assignments(
     return int(rows.numel()), int((gap <= tol).sum()), float(gap.max())
 
 
+def _search_forward(z_flat, codebook, precision: str, impl: str):
+    """The forward's dispatch: the kernel on the card unless ``impl`` is
+    "jnp", the plain version otherwise (no fallback from the kernel)."""
+    if impl != "jnp" and z_flat.is_cuda:
+        return cuda_quantizer.nearest_code_cuda(z_flat, codebook, precision)
+    return nearest_code_torch(z_flat, codebook, precision)
+
+
 class _NearestCode(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, z_flat, codebook, precision):
-        if z_flat.is_cuda:
-            z_q, indices = cuda_quantizer.nearest_code_cuda(z_flat, codebook, precision)
-        else:
-            z_q, indices = nearest_code_torch(z_flat, codebook, precision)
+    def forward(ctx, z_flat, codebook, precision, impl):
+        z_q, indices = _search_forward(z_flat, codebook, precision, impl)
         ctx.save_for_backward(indices)
         ctx.codebook_shape, ctx.codebook_dtype = codebook.shape, codebook.dtype
         ctx.mark_non_differentiable(indices)
@@ -185,14 +199,15 @@ class _NearestCode(torch.autograd.Function):
         # d(one_hot @ E)/dE: scatter-add of cotangent rows into assigned codes
         # (the JAX segment_sum, quantizer.py:171-179); z gets zero.
         d_codebook = scatter_add_rows(indices, g_zq.to(ctx.codebook_dtype), ctx.codebook_shape[0])
-        return torch.zeros_like(g_zq), d_codebook, None
+        return torch.zeros_like(g_zq), d_codebook, None, None
 
 
 def nearest_code(
-    z_flat: torch.Tensor, codebook: torch.Tensor, precision: str = "highest"
+    z_flat: torch.Tensor, codebook: torch.Tensor, precision: str = "highest", impl: str = "auto"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dist + argmin + gather: (N, D), (K, D) -> (z_q (N, D), indices (N,) int32)."""
-    return _NearestCode.apply(z_flat, codebook, precision)
+    check_quantizer_impl(impl)
+    return _NearestCode.apply(z_flat, codebook, precision, impl)
 
 
 def quantize(
@@ -212,7 +227,9 @@ def quantize(
     (``parallel/code_parallel.py::nearest_code_sharded`` bound to the mesh).
     The loss is this rank's rows'; ``counts`` and the perplexity are the
     global batch's, the counts summed over the mesh's data group. On one
-    process (no mesh, or the trivial one) that sum does nothing.
+    process (no mesh, or the trivial one) that sum does nothing. The caller
+    binds the config's ``quantizer_impl`` into ``search``
+    (``partial(nearest_code, impl=...)``).
     """
     b, h, w, d = z.shape
     n_data = 1 if mesh is None else mesh.n_data

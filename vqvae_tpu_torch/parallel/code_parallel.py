@@ -24,6 +24,10 @@ JAX's ``quantize_sharded`` is ``ops/quantizer.py::quantize`` with a mesh
 and this search (``search=partial(nearest_code_sharded, mesh=mesh)``); the
 mesh of ranks itself is ``parallel/mesh.py::make_mesh`` (JAX's
 ``make_2d_mesh``).
+
+The sharded search keeps its kernels, with their best values, whatever the
+config's ``quantizer_impl``: the combine needs the float each kernel
+compared. JAX's ``quantize_sharded`` ignores ``impl`` too.
 """
 
 from __future__ import annotations

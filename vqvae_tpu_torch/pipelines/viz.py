@@ -2,7 +2,8 @@
 ``vqvae_tpu/pipelines/viz.py``; the reference's visualization.ipynb as code).
 
 A model is rebuilt from the hyperparameters its checkpoint stores, never
-from the caller's flags (the reference notebook's ``load_model``). A file
+from the caller's flags (the reference notebook's ``load_model``), except
+``quantizer_impl``, how the search runs, which the caller gives. A file
 without them (written with ``hyperparameters=None``) needs ``fallback_cfg``,
 which the CLI builds from its model flags; without one the load raises and
 names those flags. Loads are strict: a parameter tree of another
@@ -44,19 +45,23 @@ def _config(path: str, hp: Dict, cls, fallback_cfg, flags: Tuple[str, ...]):
     return fallback_cfg
 
 
-def _load(path: str, device, cls, model_cls, fallback_cfg, flags):
+def _load(path: str, device, cls, model_cls, fallback_cfg, flags, **run_as):
     dev = resolve_device(device)
     params, _step, metrics, hp = read_checkpoint(path)
-    model = model_cls(_config(path, hp, cls, fallback_cfg, flags))
+    model = model_cls(_config(path, hp, cls, fallback_cfg, flags).replace(**run_as))
     model.load_state_dict(params_from_jax(params), strict=True)
     return model.to(dev).eval(), metrics, hp
 
 
-def load_model(checkpoint_path: str, device: str = "cuda",
-               fallback_cfg: Optional[VQVAEConfig] = None) -> Tuple[VQVAE, Dict, Dict]:
+def load_model(checkpoint_path: str, device: str = "cuda", fallback_cfg: Optional[VQVAEConfig] = None,
+               quantizer_impl: str = "auto") -> Tuple[VQVAE, Dict, Dict]:
     """A VQVAE from a checkpoint -> (model in eval mode on ``device``,
-    metrics, stored hyperparameters)."""
-    return _load(checkpoint_path, device, VQVAEConfig, VQVAE, fallback_cfg, VQVAE_FLAGS)
+    metrics, stored hyperparameters). The model's search runs as
+    ``quantizer_impl`` says, whatever the file stores: it is how the search
+    runs, not what the model is (the JAX CLI's ``_vqvae_cfg_for_checkpoint``
+    loads it as "auto"); the returned hyperparameters keep the stored value."""
+    return _load(checkpoint_path, device, VQVAEConfig, VQVAE, fallback_cfg, VQVAE_FLAGS,
+                 quantizer_impl=quantizer_impl)
 
 
 def load_prior(checkpoint_path: str, device: str = "cuda",

@@ -8,7 +8,8 @@ step and, with an EMA codebook, the EMA update:
 
 On a CUDA device the forward's nearest-code search is the hand-written kernel
 (``ops/cuda_quantizer.py``: route "fma" for the "highest" quantizer mode,
-"mma" for "default"/"high"), its backward a scatter-add in a fixed order
+"mma" for "default"/"high"), or the plain version where the config's
+``quantizer_impl`` is "jnp"; its backward a scatter-add in a fixed order
 (``ops/scatter.py::scatter_add_rows``).
 
 Nothing inside a chunk of updates reads the device back: the step counter
@@ -125,7 +126,8 @@ class VQVAETrainer:
         self.mesh = make_mesh(mesh_cfg.n_data, mesh_cfg.n_code)
         check_divisible(vq_cfg.n_embeddings, train_cfg.batch_size, self.mesh)
         self.sharded = self.mesh.n_code > 1
-        self._search = partial(nearest_code_sharded, mesh=self.mesh) if self.sharded else nearest_code
+        self._search = (partial(nearest_code_sharded, mesh=self.mesh) if self.sharded
+                        else partial(nearest_code, impl=vq_cfg.quantizer_impl))
         self._device_data: Optional[torch.Tensor] = None
 
     # -- state ---------------------------------------------------------------
