@@ -10,17 +10,20 @@ stops the script with a non-zero exit and no result line:
 
 1. the card (nvidia-smi name and power limit), the kernels' build report
    (``-Xptxas -v``: registers, shared memory, spills) and the count of
-   tensor-core instructions in each built kernel;
+   tensor-core instructions (``HGMMA``, Hopper's ``wgmma``; ``HMMA``, the
+   ``mma.sync`` of earlier cards) in each built kernel: every tensor-core
+   search kernel holds ``HGMMA`` and no ``HMMA``;
 2. the kernels against their plain PyTorch version on the card, in all three
    precision modes, at the main path's shapes, the TPU kernel test's shapes,
-   a ragged-K shape and the CUDA-core kernel's edges (D = 45, D = 452,
+   the JAX quantizer bench's ``stress_big`` (65,536, 8,192, 256), a ragged-K
+   shape and the CUDA-core kernel's edges (D = 45, D = 452,
    N = 37): for each the route the dispatch picks and, where
    that is "mma", the "fma" route too. z_q must be bit-exactly
    codebook[idx], every index mismatch a near-tie (float64 scores within 1e-5 * (||z||^2 + max ||e||^2)), and a
    duplicated codebook must give every index < K/2 (first minimum wins); and
-   the NaN rule (ops/cuda_quantizer.py): with codebook row 300 NaN no route
-   picks code 300, a NaN row of z gets code 0, and the plain version takes
-   the first NaN;
+   the NaN rule (ops/cuda_quantizer.py), at D = 64 and at both D = 256
+   shapes: with codebook row 300 NaN no route picks code 300, a NaN row of z
+   gets code 0, and the plain version takes the first NaN;
 3. latent extraction, the main path: the trained bf16 checkpoint
    (artifacts/e2e_r5, "default" quantizer) over the 12,000 synthetic CIFAR
    images at batch 256, which must launch the "mma" kernel 47 times; its
@@ -29,11 +32,12 @@ stops the script with a non-zero exit and no result line:
 4. reconstruction with the trained fp32/"highest" checkpoint (artifacts/e2e_r4)
    on 1,024 validation images through ``reconstruct`` and ``forward`` (2
    launches of the "fma" kernel), held against the port on the CPU on 8 images;
-5. times with CUDA events at the main path's shapes for each mode: the
-   kernel the dispatch picks, the "fma" kernel where that is another, the
-   bound on an H100 SXM, the launch floor (an empty kernel), the plain
-   version, and one PyTorch matmul + argmin as a yardstick (the port never
-   calls it);
+5. times with CUDA events at the main path's shapes (N = 2,048, 16,384 and
+   65,536 at K = 512, D = 64) and the two D = 256 shapes of phase 2, for each
+   mode: the kernel the dispatch picks, the "fma" kernel where that is
+   another, the bound on an H100 SXM, the launch floor (an empty kernel), the
+   plain version, and one PyTorch matmul + argmin as a yardstick (the port
+   never calls it);
 6. ``torch.profiler`` over an extraction of 2,560 images: device time by
    kernel and the share of the wall time in which the card was busy;
 7. training, fp32 / "highest" (the config's default): ``train_vqvae`` over the
@@ -179,14 +183,17 @@ REQUEST_SIZES = (1, 10, 64, 100)      # phase 12: one client thread each, 3 requ
 MODES = ("highest", "high", "default")
 MAIN_SHAPE = (16_384, 512, 64)        # extraction: batch 256 x 8 x 8 latents
 BENCH_SHAPE = (65_536, 512, 64)       # the JAX bench.py batch of 1,024
+FLEET_SHAPE = (2048, 512, 64)         # a fleet's train step: batch 32
 TPU_TEST_SHAPES = ((2048, 512, 64), (2048, 8192, 256), (1000, 300, 48))
+STRESS_BIG_SHAPE = (65_536, 8192, 256)  # tools/bench_quantizer.py's stress_big
+DEEP_SHAPES = ((2048, 8192, 256), STRESS_BIG_SHAPE)  # D = 256, inside the "mma" envelope
 RAGGED_K_SHAPE = (4096, 301, 64)      # K no multiple of 8, inside the "mma" envelope
 # the CUDA-core kernel's edges: D no multiple of 4 with ragged N and K (scalar
 # loads), a depth of many chunks, N below one block
 FMA_EDGE_SHAPES = ((1000, 300, 45), (1000, 300, 452), (37, 512, 64))
 # device items of a profile by the first group whose key their name holds
 DEVICE_ITEM_GROUPS = (
-    ("hand-written kernels", ("nearest_code", "prepare_codebook")),
+    ("hand-written kernels", ("nearest_code",)),
     ("copies", ("Memcpy", "Memset")),
     ("cuDNN layout conversions", ("nhwcToNchw", "nchwToNhwc")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
@@ -235,7 +242,8 @@ def check(cond: bool, msg: str) -> None:
 
 
 def tensor_core_counts(cuda_quantizer, lib_path) -> dict:
-    """HMMA (tensor-core) instructions per kernel in the built library's SASS."""
+    """Tensor-core instructions per kernel in the built library's SASS:
+    {kernel: {"HGMMA": n, "HMMA": m}} (Hopper's wgmma; the mma.sync of earlier cards)."""
     cuobjdump = os.path.join(os.path.dirname(cuda_quantizer.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True).stdout
@@ -243,9 +251,11 @@ def tensor_core_counts(cuda_quantizer, lib_path) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            counts[name] = 0
-        elif name is not None and "HMMA" in line:
-            counts[name] += 1
+            counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                if op in line:
+                    counts[name][op] += 1
     return counts
 
 
@@ -292,7 +302,7 @@ def profile_device(tag: str, what: str, fn, top: int = 12) -> dict:
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"[{tag}]   {us / 1e3:9.3f} ms  {count[name]:5d} x  {name[:100]}")
     for name, us in by_name.items():  # the hand-written kernels, wherever they rank
-        if "nearest_code" in name or "prepare_codebook" in name:
+        if "nearest_code" in name:
             print(f"[{tag}] hand-written: {us / 1e3:.3f} ms = {us / busy:.4f} of busy in "
                   f"{count[name]} launches ({us / count[name]:.2f} us each)  {name[:70]}")
     groups = {}
@@ -1745,19 +1755,24 @@ def main() -> int:
     lib_path = cuda_quantizer.build()
     print(f"[1] built {os.path.relpath(lib_path, ROOT)} in {time.perf_counter() - t0:.1f} s")
     print(cuda_quantizer.build_log.strip())
-    hmma = tensor_core_counts(cuda_quantizer, lib_path)
-    search = {name: c for name, c in hmma.items() if "nearest_code_mma_kernel" in name}
-    others = {name: c for name, c in hmma.items() if name not in search}
-    print(f"[1] HMMA instructions in the SASS (cuobjdump): {len(search)} nearest_code_mma_kernel "
-          f"variants hold {min(search.values(), default=0)} to {max(search.values(), default=0)} "
-          f"each; every other kernel ({len(others)}) {max(others.values(), default=0)} at most")
-    check(search and min(search.values()) > 0,
-          "a tensor-core search kernel holds no tensor-core instruction")
+    tc = tensor_core_counts(cuda_quantizer, lib_path)
+    search = {name: c for name, c in tc.items() if "nearest_code_mma_kernel" in name}
+    others = {name: c for name, c in tc.items() if name not in search}
+    hgmma = [c["HGMMA"] for c in search.values()]
+    print(f"[1] tensor-core instructions in the SASS (cuobjdump): {len(search)} "
+          f"nearest_code_mma_kernel variants hold {min(hgmma, default=0)} to {max(hgmma, default=0)} "
+          f"HGMMA and {max((c['HMMA'] for c in search.values()), default=0)} HMMA at most; every other "
+          f"kernel ({len(others)}) {max((c['HGMMA'] + c['HMMA'] for c in others.values()), default=0)} "
+          f"at most")
+    check(len(search) == 32 and min(hgmma) > 0,
+          "a tensor-core search kernel (16 depths x 2 modes) holds no HGMMA")
+    check(all(c["HMMA"] == 0 for c in search.values()), "a tensor-core search kernel holds HMMA")
 
     # -- phase 2: kernels vs plain on the card --------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     main_err = {}
-    for n, k, d in (MAIN_SHAPE, BENCH_SHAPE) + TPU_TEST_SHAPES + (RAGGED_K_SHAPE,) + FMA_EDGE_SHAPES:
+    for n, k, d in ((MAIN_SHAPE, BENCH_SHAPE) + TPU_TEST_SHAPES + (STRESS_BIG_SHAPE, RAGGED_K_SHAPE)
+                    + FMA_EDGE_SHAPES):
         z = torch.randn(n, d, device=dev, generator=gen)
         cb = torch.randn(k, d, device=dev, generator=gen)
         cb_dup = torch.cat([cb[: k // 2], cb[: k // 2]])
@@ -1793,12 +1808,12 @@ def main() -> int:
         check(same, "the scalar-load path disagrees with the 16-byte-load path")
 
     # NaN scores (the rule in ops/cuda_quantizer.py): codebook row 300 NaN, z row 7 NaN
-    n, k, d = MAIN_SHAPE
-    z = torch.randn(n, d, device=dev, generator=gen)
-    cb = torch.randn(k, d, device=dev, generator=gen)
-    z[7], cb[300] = float("nan"), float("nan")
-    keep, finite = torch.arange(k, device=dev) != 300, torch.arange(n, device=dev) != 7
-    for mode in MODES:
+    for n, k, d, mode in ([(*MAIN_SHAPE, mode) for mode in MODES]
+                          + [(*shape, mode) for shape in DEEP_SHAPES for mode in ("high", "default")]):
+        z = torch.randn(n, d, device=dev, generator=gen)
+        cb = torch.randn(k, d, device=dev, generator=gen)
+        z[7], cb[300] = float("nan"), float("nan")
+        keep, finite = torch.arange(k, device=dev) != 300, torch.arange(n, device=dev) != 7
         _, idx_plain = nearest_code_torch(z, cb, mode)
         plain_rule = bool((idx_plain[finite] == 300).all()) and int(idx_plain[7]) == 0
         _, rest = nearest_code_torch(z, cb[keep], mode)
@@ -1808,7 +1823,7 @@ def main() -> int:
             mism, near, _gap = compare_assignments(z[finite], cb.nan_to_num(0.0), idx[finite],
                                                    want[finite], mode)
             picked_nan = int((idx == 300).sum())
-            print(f"[2] NaN codebook row 300, NaN z row 7, N={n} {mode:8s} {route}: rows on code 300 "
+            print(f"[2] NaN codebook row 300, NaN z row 7, N={n} K={k} D={d} {mode:8s} {route}: rows on code 300 "
                   f"{picked_nan}, z row 7 -> code {int(idx[7])}, vs nearest other code mismatches={mism} "
                   f"near_ties={near}; plain version: first NaN (300 for finite rows, 0 for row 7) "
                   f"{plain_rule}")
@@ -1898,7 +1913,7 @@ def main() -> int:
     launch_floor_ms = min(time_ms(cuda_quantizer.launch_empty_kernel) for _ in range(2))
     print(f"[5] launch_floor_ms {launch_floor_ms:.5f} (an empty kernel, queued ahead; {smi})")
     rows = []
-    for n, k, d in (MAIN_SHAPE, BENCH_SHAPE):
+    for n, k, d in (FLEET_SHAPE, MAIN_SHAPE, BENCH_SHAPE) + DEEP_SHAPES:
         z = torch.randn(n, d, device=dev, generator=gen)
         cb = torch.randn(k, d, device=dev, generator=gen)
         for mode in MODES:

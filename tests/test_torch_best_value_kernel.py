@@ -40,7 +40,8 @@ from vqvae_tpu_torch.parallel.code_parallel import combine_shards
 
 ROUTES = [("highest", "fma"), ("high", "fma"), ("default", "fma"), ("high", "mma"),
           ("default", "mma")]
-SHAPES = [(2048, 512, 64), (1000, 300, 48), (37, 512, 64), (1000, 300, 45)]
+SHAPES = [(2048, 512, 64), (1000, 300, 48), (37, 512, 64), (1000, 300, 45),
+          (1000, 301, 256)]  # the last: D = 256 on the tensor cores too
 SPLITS = [(512, 2), (512, 4), (512, 8), (600, 2)]
 
 

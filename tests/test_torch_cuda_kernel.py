@@ -114,14 +114,17 @@ def test_kernels_skip_nan_scores_on_card(precision):
 @pytest.mark.parametrize(
     "shape",
     [(1000, 300, 48), (2048, 512, 64), (257, 70, 256), (4096, 301, 64), (300, 77, 128),
-     (1000, 300, 45), (200, 130, 452), (37, 512, 64)],
+     (1000, 300, 45), (200, 130, 452), (37, 512, 64), (600, 301, 80), (500, 301, 144),
+     (1000, 301, 256)],
 )
 def test_cuda_kernel_vs_plain_on_card(shape, precision, route):
     """Near-tie rule, exact gather, first minimum on a duplicated codebook,
-    ragged N and K edges (K = 301 and 77 are no multiples of 8), D up to 452
-    (walked in chunks), D = 45 (no multiple of 4: the CUDA-core kernel's
-    scalar loads), N = 37 (less than a block), on each route that takes the
-    case."""
+    ragged N and K edges (K = 301 and 77 are no multiples of 8 or of a code
+    tile), D up to 452 (walked in chunks), D = 45 (no multiple of 4: the
+    CUDA-core kernel's scalar loads), N = 37 (less than a block), and on the
+    tensor-core kernel D = 80, 144 and 256 (two, three and four 64-depth
+    swizzle atoms, the last two of them part-filled or with narrower code
+    tiles), on each route that takes the case."""
     dev = _card()
     assert torch.get_float32_matmul_precision() == "highest"  # the plain version in fp32
     n, k, d = shape

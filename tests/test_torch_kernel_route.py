@@ -2,13 +2,17 @@
 library is keyed (vqvae_tpu_torch/ops/cuda_quantizer.py).
 
 Everything here runs without a card and without ``nvcc``: the dispatch is a
-pure function of (precision, D), the build digest is a hash of files, and the
-wrapper's refusals come before any build. This file imports no JAX.
+pure function of (precision, D), the build digest is a hash of files, the
+tensor-core kernel's shared memory is reckoned in Python from the constants
+of its source, and the wrapper's refusals come before any build. This file
+imports no JAX.
 """
 
 from __future__ import annotations
 
+import re
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -36,15 +40,20 @@ def _inputs(n, k, d, seed=0):
         ("high", 48, "mma"),
         ("high", 64, "mma"),
         ("high", 128, "mma"),
+        # the rows of z sit in shared memory, so the depth runs to 256
+        ("default", 144, "mma"),
+        ("high", 144, "mma"),
+        ("default", 256, "mma"),
+        ("high", 256, "mma"),
         # "highest" is fp32: never on the bf16 tensor-core kernel
         ("highest", 48, "fma"),
         ("highest", 64, "fma"),
         ("highest", 128, "fma"),
         ("highest", 256, "fma"),
-        # above the depth the tensor-core kernel holds in registers
-        ("default", 256, "fma"),
-        ("high", 256, "fma"),
-        ("default", 144, "fma"),
+        # above the deepest layout that fits in shared memory
+        ("default", 272, "fma"),
+        ("high", 272, "fma"),
+        ("default", 512, "fma"),
         # no multiple of the mma depth step
         ("default", 40, "fma"),
         ("high", 72, "fma"),
@@ -64,7 +73,7 @@ def test_kernel_route_rejects_unknown_precision():
 
 
 @pytest.mark.parametrize(
-    "precision, d", [("highest", 64), ("default", 256), ("high", 40), ("default", 8)]
+    "precision, d", [("highest", 64), ("default", 272), ("high", 40), ("default", 8)]
 )
 def test_explicit_mma_route_outside_its_envelope_raises(precision, d, monkeypatch):
     """Refused from (precision, D) alone, before any build."""
@@ -82,7 +91,7 @@ def test_unknown_route_raises():
 def test_cpu_tensor_refusal_comes_before_the_route(route, monkeypatch):
     """A CPU tensor is refused first, whatever the route, and nothing is built."""
     monkeypatch.setattr(cuda_quantizer, "build", lambda: pytest.fail("a build was started"))
-    z, cb = _inputs(8, 4, 256)  # D = 256 is outside the mma envelope
+    z, cb = _inputs(8, 4, 272)  # D = 272 is outside the mma envelope
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_quantizer.nearest_code_indices(z, cb, "default", route)
 
@@ -92,8 +101,12 @@ def test_build_digest_changes_with_any_source_and_with_the_flags(tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(cuda_quantizer.CSRC, csrc)
     files = sorted(p for p in csrc.rglob("*") if p.is_file())
-    assert {p.name for p in files} >= {"nearest_code.cu", "nearest_code_mma.cu"}
-    assert cuda_quantizer.sources(csrc) == [p for p in files if p.suffix == ".cu"]
+    assert {p.name for p in files} >= {"nearest_code.cu", "nearest_code_mma.cu",
+                                       "nearest_code_mma_sync.cu"}
+    # the library builds the top level only; the baseline under variants/ is
+    # the measuring script's
+    assert cuda_quantizer.sources(csrc) == [p for p in files if p.suffix == ".cu" and p.parent == csrc]
+    assert all(p.parent == csrc for p in cuda_quantizer.sources(csrc))
     base = cuda_quantizer.source_digest(csrc)
     assert base == cuda_quantizer.source_digest(cuda_quantizer.CSRC)
     assert base == cuda_quantizer.source_digest(csrc)  # stable
@@ -112,20 +125,79 @@ def test_build_digest_changes_with_any_source_and_with_the_flags(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "k, d, precision, want",
+    "d, precision, want",
     [
-        (512, 64, "default", 4 * 512 + 2 * 512 * 64),
-        (512, 64, "high", 4 * 512 + 2 * 2 * 512 * 64),
-        # ||e||^2 is padded to four values, so the bf16 codebook behind it starts
-        # on 16 bytes, where the search kernel's 16-byte copies need it
-        (301, 64, "default", 4 * 304 + 2 * 301 * 64),
-        (301, 48, "high", 4 * 304 + 2 * 2 * 301 * 48),
-        (1, 16, "default", 4 * 4 + 2 * 16),
+        # z: 128 rows x ceil(D / 64) atoms x 128 bytes a plane; three code tiles
+        # of 64 codes (planes x atoms x 64 x 128); two fp32 stages of 64 x D x 4;
+        # ||e||^2 of three tiles; two mbarriers; 1,024 bytes of alignment slack
+        (64, "default", 16_384 + 24_576 + 32_768 + 768 + 16 + 1024),
+        (64, "high", 32_768 + 49_152 + 32_768 + 768 + 16 + 1024),
+        (16, "default", 16_384 + 24_576 + 8_192 + 768 + 16 + 1024),
+        (48, "high", 32_768 + 49_152 + 24_576 + 768 + 16 + 1024),
+        (128, "high", 65_536 + 98_304 + 65_536 + 768 + 16 + 1024),
+        (144, "default", 49_152 + 73_728 + 73_728 + 768 + 16 + 1024),
+        # D = 256 takes 32-code tiles ("default") and 16-code tiles ("high"):
+        # the layout shrinks the code tile, not the envelope
+        (256, "default", 65_536 + 49_152 + 65_536 + 384 + 16 + 1024),
+        (256, "high", 131_072 + 49_152 + 32_768 + 192 + 16 + 1024),
     ],
 )
-def test_mma_scratch_bytes(k, d, precision, want):
-    assert cuda_quantizer.mma_scratch_bytes(k, d, precision) == want
-    assert (want - 2 * k * d * (2 if precision == "high" else 1)) % 16 == 0
+def test_mma_smem_bytes(d, precision, want):
+    assert cuda_quantizer.mma_smem_bytes(d, precision) == want
+
+
+@pytest.mark.parametrize("precision", ["default", "high"])
+@pytest.mark.parametrize("d", range(16, 257, 16))
+def test_every_mma_depth_fits_in_shared_memory(d, precision):
+    """Every depth of the envelope has a layout under the 227 KB a block may
+    use, with the widest code tile that fits, and its base starts aligned."""
+    nbytes = cuda_quantizer.mma_smem_bytes(d, precision)
+    codes = cuda_quantizer.mma_tile_codes(d, precision)
+    assert nbytes <= cuda_quantizer.MAX_SMEM_BYTES
+    assert codes in (16, 32, 64)
+    if codes < 64:  # the next wider tile would not fit
+        planes = 2 if precision == "high" else 1
+        assert cuda_quantizer._mma_layout_bytes(d, planes, 2 * codes) > cuda_quantizer.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("precision, d", [("highest", 64), ("default", 272), ("high", 40)])
+def test_mma_smem_bytes_only_inside_the_envelope(precision, d):
+    with pytest.raises(ValueError, match="mma"):
+        cuda_quantizer.mma_smem_bytes(d, precision)
+
+
+def test_mma_layout_constants_follow_the_source():
+    """The Python figure mirrors nearest_code_mma.cu: its shipped block shape,
+    ring depths, alignment and shared-memory limit."""
+    text = (cuda_quantizer.CSRC / "nearest_code_mma.cu").read_text()
+
+    def constant(pattern):
+        return int(re.search(pattern, text).group(1))
+
+    assert constant(r"#define VQ_WARPGROUPS (\d+)") == cuda_quantizer.MMA_WARPGROUPS
+    assert constant(r"#define VQ_RAW_STAGES (\d+)") == cuda_quantizer.MMA_RAW_STAGES
+    assert constant(r"constexpr int kTileStages = (\d+);") == cuda_quantizer.MMA_TILE_STAGES
+    assert constant(r"constexpr int kAtomAlign = (\d+);") == cuda_quantizer.MMA_ATOM_ALIGN
+    assert constant(r"constexpr int kMaxSmemBytes = (\d+);") == cuda_quantizer.MAX_SMEM_BYTES
+    assert constant(r"constexpr int kMaxDepthSteps = (\d+);") * 16 == cuda_quantizer.MMA_MAX_D
+    assert "prepare_codebook" not in text and "void* scratch" not in text  # one kernel, no scratch
+
+
+def test_sweep_mma_ablations_apply_to_the_shipped_source(tmp_path, monkeypatch):
+    """``sweep_nearest_code.py mma_ablate`` times copies of the tensor-core
+    source with parts taken out: every replacement must match the shipped
+    source exactly once, and each copy must differ from it."""
+    monkeypatch.syspath_prepend(str(cuda_quantizer.CSRC.parents[1]))
+    monkeypatch.delitem(sys.modules, "sweep_nearest_code", raising=False)
+    import sweep_nearest_code
+
+    shipped = (cuda_quantizer.CSRC / "nearest_code_mma.cu").read_text()
+    jobs = sweep_nearest_code.ablated_sources(str(tmp_path), "nearest_code_mma.cu",
+                                              sweep_nearest_code.MMA_ABLATIONS)
+    assert set(jobs) == set(sweep_nearest_code.MMA_ABLATIONS)
+    for name, (path, _defines) in jobs.items():
+        assert (open(path).read() == shipped) == (name == "shipped"), name
+    assert sweep_nearest_code.BASELINE.is_file()
 
 
 def test_cpu_path_moves_no_launch_count():

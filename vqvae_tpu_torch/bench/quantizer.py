@@ -10,8 +10,8 @@ It times the kernels, so it needs the card (``time_ms`` raises without one).
 For each config (the JAX tool's ``CONFIGS``) and mode: the route
 ``cuda_quantizer.kernel_route`` picks, the other route where its envelope
 takes the mode and depth (``mma`` takes ``default`` and ``high`` with D a
-multiple of 16 up to 128, so the D = 256 configs run ``fma`` in every mode:
-that is the route, not a fallback), the plain version
+multiple of 16 up to 256, so every config runs both kernels in those modes
+and ``fma`` alone in ``highest``), the plain version
 (``code_scores(...).argmin``) and one PyTorch matmul + argmin, each timed by
 ``time_ms`` behind a device spin, in ``alternate``'s turns. Each row carries
 the least time the card could take (``bound``) and what binds it.

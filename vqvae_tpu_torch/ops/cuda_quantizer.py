@@ -4,9 +4,11 @@ The counterpart of ``vqvae_tpu/ops/pallas_quantizer.py``. Two kernels compute
 the same function, and ``kernel_route`` picks one from (precision, D) alone:
 
 ``"mma"``  ``csrc/nearest_code_mma.cu``: the products on the tensor cores
-           (``mma.sync`` on bf16 operands, fp32 sums). Takes ``default`` and
-           ``high`` with D a multiple of 16 up to ``MMA_MAX_D``. A call is a
-           small prepare kernel over the codebook and the search kernel.
+           (``wgmma`` on bf16 operands read from shared memory, fp32 sums).
+           Takes ``default`` and ``high`` with D a multiple of 16 up to
+           ``MMA_MAX_D``. A call is one kernel; each block rounds the code
+           tiles it multiplies (``mma_smem_bytes``), so nothing is allocated
+           besides the outputs.
 ``"fma"``  ``csrc/nearest_code.cu``: fp32 FMAs on the CUDA cores, 8 x 8 scores a
            thread. Takes every mode and every depth: it walks the depth in
            chunks, and a block keeps its rows of z in shared memory where all
@@ -40,8 +42,7 @@ the request the kernels get a null pointer and do what they did before.
 
 ``launches`` counts calls that launched a kernel and ``launches_by_route``
 splits it by route, so a run can show that its main path went through a
-kernel; only ``nearest_code_indices`` adds to them (one per call, also where
-the call is two kernels).
+kernel; only ``nearest_code_indices`` adds to them (one per call).
 """
 
 from __future__ import annotations
@@ -67,9 +68,15 @@ MODES = {"highest": 0, "high": 1, "default": 2}
 ROUTES = ("mma", "fma")
 # Largest dynamic shared memory a block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232_448
-# The tensor-core kernel holds a warp's rows of z in registers: D / 16 depth
-# steps of 8 registers ("high": 16), so its depth is capped.
-MMA_MAX_D = 128
+# The tensor-core kernel's block, as ``csrc/nearest_code_mma.cu`` fixes it:
+# warpgroups (64 rows of z each), bf16 code tiles and fp32 code stages in its
+# rings, the alignment of its swizzled operand tiles; the deepest D it takes
+# (its rows of z sit in shared memory, which the deepest "high" layout fills).
+MMA_WARPGROUPS = 2
+MMA_TILE_STAGES = 3
+MMA_RAW_STAGES = 2
+MMA_ATOM_ALIGN = 1024
+MMA_MAX_D = 256
 # The CUDA-core kernel's tile, as ``csrc/nearest_code.cu`` fixes it: rows of z a
 # block owns, codes per tile, depths staged per chunk.
 FMA_BLOCK_ROWS = 128
@@ -165,7 +172,7 @@ def _library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.vq_nearest_code.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.vq_nearest_code.restype = i32
-        lib.vq_nearest_code_mma.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.vq_nearest_code_mma.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.vq_nearest_code_mma.restype = i32
         lib.vq_empty_kernel.argtypes = [ptr]
         lib.vq_empty_kernel.restype = i32
@@ -215,11 +222,38 @@ def resolve_route(route: Optional[str], precision: str, d: int) -> str:
     return route
 
 
-def mma_scratch_bytes(k: int, d: int, precision: str) -> int:
-    """Scratch of one tensor-core call, laid out as ``nearest_code_mma.cu`` reads
-    it: ||e||^2 (K fp32, padded to a multiple of 4), then the codebook as bf16
-    and, for ``high``, the bf16 of its remainder."""
-    return 4 * ((k + 3) // 4 * 4) + 2 * k * d * (2 if precision == "high" else 1)
+def _mma_layout_bytes(d: int, planes: int, tile_codes: int) -> int:
+    atoms = -(-d // 64)  # 128-byte swizzle atoms of 64 bf16 depths
+    rows = 64 * MMA_WARPGROUPS
+    return (planes * atoms * 128 * rows                           # the block's rows of z
+            + MMA_TILE_STAGES * planes * atoms * 128 * tile_codes  # bf16 code tiles
+            + MMA_RAW_STAGES * tile_codes * d * 4                  # fp32 code tiles
+            + MMA_TILE_STAGES * tile_codes * 4                     # their ||e||^2
+            + MMA_RAW_STAGES * 8                                   # one mbarrier a stage
+            + MMA_ATOM_ALIGN)                                      # slack to align the base
+
+
+def mma_tile_codes(d: int, precision: str) -> int:
+    """Codes in one tile of the tensor-core kernel at depth D: 64, or 32 / 16
+    where a deep layout would not fit (``tile_codes`` in the source)."""
+    planes = 2 if precision == "high" else 1
+    for codes in (64, 32):
+        if _mma_layout_bytes(d, planes, codes) <= MAX_SMEM_BYTES:
+            return codes
+    return 16
+
+
+def mma_smem_bytes(d: int, precision: str) -> int:
+    """Dynamic shared memory of one block of the tensor-core kernel at depth D,
+    as ``nearest_code_mma.cu`` reckons it (``Layout``, ``tile_codes``): the
+    block's rows of z as bf16 (``high``: a hi and a lo plane) in 128-byte
+    swizzle atoms of 64 depths, three bf16 code tiles, two fp32 code tiles as
+    the bulk copies land them, ||e||^2 of each bf16 tile, one mbarrier per
+    fp32 tile and 1,024 bytes that align the base. Only the "mma" route's
+    modes and depths have a figure."""
+    if resolve_route("mma", precision, d) != "mma":
+        raise ValueError(f"no mma layout for precision {precision!r} at D = {d}")
+    return _mma_layout_bytes(d, 2 if precision == "high" else 1, mma_tile_codes(d, precision))
 
 
 def fma_smem_bytes(d: int, precision: str) -> int:
@@ -266,8 +300,12 @@ def nearest_code_indices(
     n, d = z_flat.shape
     k = codebook.shape[0]
     route = resolve_route(route, precision, d)
-    if route == "mma" and z_flat.data_ptr() % 8:
-        raise ValueError("the mma route reads z_flat in 8-byte pairs: its storage is misaligned")
+    if route == "mma":
+        if z_flat.data_ptr() % 16 or codebook.data_ptr() % 16:
+            raise ValueError("the mma route reads z_flat and codebook in 16-byte pieces: "
+                             "a storage is misaligned")
+        if mma_smem_bytes(d, precision) > MAX_SMEM_BYTES:
+            raise ValueError(f"the mma layout at D = {d} exceeds {MAX_SMEM_BYTES} bytes")
     idx = torch.empty((n,), dtype=torch.int32, device=z_flat.device)
     best = torch.empty((n,), dtype=torch.float32, device=z_flat.device) if values else None
     if n == 0:
@@ -278,12 +316,9 @@ def nearest_code_indices(
     with torch.cuda.device(z_flat.device):
         stream = torch.cuda.current_stream().cuda_stream
         if route == "mma":
-            scratch = torch.empty(
-                (mma_scratch_bytes(k, d, precision),), dtype=torch.uint8, device=z_flat.device,
-            )
             err = lib.vq_nearest_code_mma(
-                z_flat.data_ptr(), codebook.data_ptr(), idx.data_ptr(), best_ptr,
-                scratch.data_ptr(), n, k, d, mode, stream,
+                z_flat.data_ptr(), codebook.data_ptr(), idx.data_ptr(), best_ptr, n, k, d, mode,
+                stream,
             )
         else:
             err = lib.vq_nearest_code(
@@ -321,6 +356,6 @@ def launch_empty_kernel() -> None:
 
 __all__ = [
     "build", "fma_smem_bytes", "kernel_route", "launch_empty_kernel", "launches", "launches_by_route",
-    "mma_scratch_bytes", "nearest_code_cuda", "nearest_code_indices", "reset_launch_counts", "resolve_route",
+    "mma_smem_bytes", "mma_tile_codes", "nearest_code_cuda", "nearest_code_indices", "reset_launch_counts", "resolve_route",
     "source_digest",
 ]
