@@ -146,6 +146,18 @@ stops the script with a non-zero exit and no result line:
    ``artifacts_torch/`` (both listed before and after); and the config's
    ``quantizer_impl`` on the card: ``quantize`` under "jnp" launches nothing
    and gives the plain version's bits, "auto" and "pallas" one kernel each.
+18. the last JAX-side tools (``vqvae_tpu_torch/bench/{e2e,conv_strategy,scaling}.py``):
+   ``e2e.main(["run", ...])`` into a temporary directory, each of its four
+   stages in a process of its own, cut for this script's time limit only to
+   200 updates, one prior epoch and 10 samples (the extraction keeps all
+   12,000 images): every stage exits 0, ``wall_times.json`` holds the JAX
+   script's keys and the card's line, every record ``report`` reads exists,
+   the stages made exactly 200 + 47 "mma" launches and no "fma" one, and
+   ``report`` runs and writes nothing under ``artifacts/`` or
+   ``artifacts_torch/`` (both listed before and after); the space-to-depth
+   rewrite of the k4/s2 convs against cuDNN's strided conv in fp32 with TF32
+   off (relative error < 1e-5); one weak-scaling worker at one rank (NCCL)
+   with a finite positive rate and its "fma" launches.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -233,6 +245,12 @@ BENCH_QUANTIZER_CONFIGS = ("default", "big_batch")
 MFU_MAX = 1.05
 # phase 17: updates of each of its two runs, the final window compared with the first
 PARITY_STEPS = 300
+# phase 18: the pipeline's scale, cut for this script's time limit (train-prior
+# runs epochs 1 .. epochs - 1, so 2 is one epoch), and its launches: one search
+# an update, and 47 batches of 256 in the extraction of 12,000 images
+E2E_SMOKE_FLAGS = ("--n_updates", "200", "--epochs", "2", "--n_samples", "10")
+E2E_LAUNCHES = {"train_vqvae": {"mma": 200, "fma": 0}, "extract_latents": {"mma": 47, "fma": 0},
+                "train_prior": {"mma": 0, "fma": 0}, "sample": {"mma": 0, "fma": 0}}
 DEVICE = "cuda"
 
 
@@ -1595,6 +1613,61 @@ def parity_phase(smi: str) -> dict:
     return rows
 
 
+def pipeline_phase(smi: str) -> dict:
+    """Phase 18: ``bench/e2e.py``'s ``run`` at ``E2E_SMOKE_FLAGS`` and its
+    ``report``, ``bench/conv_strategy.py``'s exactness check and one
+    ``bench/scaling.py`` worker at one rank. Returns the rows and the
+    launches by route of the pipeline's stages and of the worker."""
+    import tempfile
+
+    from vqvae_tpu_torch.bench import conv_strategy, e2e, scaling
+
+    records = {d: os.path.join(ROOT, d) for d in ("artifacts", "artifacts_torch")}
+    before = {d: listing(path) for d, path in records.items()}
+    rows, launches = {}, {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        out = os.path.join(tmp, "e2e")
+        t0 = time.perf_counter()
+        check(e2e.main(["run", "--out", out, "--device", DEVICE, *E2E_SMOKE_FLAGS]) == 0,
+              "the e2e run did not exit 0")
+        rows["e2e_wall_s"] = time.perf_counter() - t0
+        with open(os.path.join(out, "wall_times.json")) as f:
+            wall = json.load(f)
+        check(wall["exit_codes"] == {name: 0 for name in e2e.WALL_KEYS},
+              f"the e2e stages exited {wall['exit_codes']}")
+        missing = [key for key in (*e2e.WALL_KEYS.values(), "total_s") if key not in wall]
+        check(not missing and wall["device"] == smi, f"wall_times.json lacks {missing} or names "
+              f"{wall['device']!r}, not {smi!r}")
+        absent = [name for name in e2e.RECORDS if not os.path.exists(os.path.join(out, name))]
+        check(not absent, f"the e2e run left no {absent}")
+        check(wall["launches"] == E2E_LAUNCHES, f"the e2e stages launched {wall['launches']}, "
+              f"not {E2E_LAUNCHES}")
+        launches["e2e"] = {route: sum(counts[route] for counts in wall["launches"].values())
+                           for route in ("mma", "fma")}
+        payload = e2e.report(out)
+        check(payload["control"] is None and len(payload["run"]["rows"]) == 6
+              and all(isinstance(r["pass"], bool) for r in payload["run"]["rows"]),
+              f"report returned {payload['run']['rows']}")
+        rows["e2e"] = {key: wall[key] for key in (*e2e.WALL_KEYS.values(), "total_s")}
+    after = {d: listing(path) for d, path in records.items()}
+    check(after == before, "phase 18 wrote under artifacts/ or artifacts_torch/")
+    print(f"[18] e2e at {' '.join(E2E_SMOKE_FLAGS)}: {json.dumps(rows['e2e'])} s, launches "
+          f"{json.dumps(wall['launches'])} ({smi})")
+
+    rows["conv_exact_rel_err"] = conv_strategy.check_exact(DEVICE)
+    print(f"[18] space-to-depth k4/s2 rewrite in fp32, TF32 off: {json.dumps(rows['conv_exact_rel_err'])}")
+    t0 = time.perf_counter()
+    row = rows["scaling"] = scaling.launch_workers(DEVICE, 1)
+    check(math.isfinite(row["images_per_sec"]) and row["images_per_sec"] > 0
+          and row["launches"]["fma"] > 0 and row["launches"]["mma"] == 0,
+          f"the scaling worker's row {row}")
+    launches["scaling"] = row["launches"]
+    print(f"[18] scaling worker, one rank: {json.dumps(row)} in {time.perf_counter() - t0:.1f} s ({smi})")
+    rows["launches"] = launches
+    return rows
+
+
 def rest_phase(smi: str, dataset, codes: np.ndarray) -> dict:
     """Phase 15: the prior's ranks (a), ``profile`` (b), ``viz`` (c), training
     on BLOCK (d) and ``checked`` around a train step (e). Returns the numbers
@@ -2179,6 +2252,9 @@ def main() -> int:
     t_parity = time.perf_counter()
     parity_rows = parity_phase(smi)
     print(f"[17] phase 17 took {time.perf_counter() - t_parity:.1f} s")
+    t_pipeline = time.perf_counter()
+    pipeline_rows = pipeline_phase(smi)
+    print(f"[18] phase 18 took {time.perf_counter() - t_pipeline:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     def parallel_launches(route):  # phase 14's main-path launches, every rank's
@@ -2194,6 +2270,9 @@ def main() -> int:
     def parity_launches(route):  # phase 17's: the two runs and quantize under auto and pallas
         return sum(counts[route] for counts in parity_rows["launches"].values())
 
+    def pipeline_launches(route):  # phase 18's: the e2e stages and the scaling worker
+        return sum(counts[route] for counts in pipeline_rows["launches"].values())
+
     def entry(name, source, route, mode, launches):
         row = main_rows[mode]
         return {"name": name, "route": "cuda", "source": source,
@@ -2207,10 +2286,11 @@ def main() -> int:
     kernels = [
         entry("nearest_code_mma", "vqvae_tpu_torch/csrc/nearest_code_mma.cu", "mma", "default",
               launches_main["mma"] + launches_bf16["mma"] + parallel_launches("mma") + rest_launches("mma")
-              + bench_launches("mma") + parity_launches("mma")),
+              + bench_launches("mma") + parity_launches("mma") + pipeline_launches("mma")),
         entry("nearest_code", "vqvae_tpu_torch/csrc/nearest_code.cu", "fma", "highest",
               launches_rec["fma"] + launches_fp32["fma"] + launches_ema["fma"] + parallel_launches("fma")
-              + rest_launches("fma") + bench_launches("fma") + parity_launches("fma")),
+              + rest_launches("fma") + bench_launches("fma") + parity_launches("fma")
+              + pipeline_launches("fma")),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path was never launched")
     print(json.dumps({"kernels": kernels}))

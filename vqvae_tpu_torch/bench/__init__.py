@@ -23,7 +23,11 @@ only) and, but for the search bench, which times kernels, ``--device``:
 - ``train``, ``prior``: the VQ-VAE's and the prior's train steps;
 - ``quantizer``: the nearest-code kernels against the plain version;
 - ``sampler``: the cached AR sampler against one full forward a pixel;
-- ``serve``: the sampling service under concurrent clients.
+- ``serve``: the sampling service under concurrent clients;
+- ``parity``: the 5,000-update convergence fleets and their verdicts;
+- ``e2e``: the reference's whole pipeline at its own scale, and its report;
+- ``scaling``: weak scaling of encode + quantize over ranks;
+- ``conv_strategy``: the space-to-depth lowering of the k4/s2 convs.
 """
 
 from __future__ import annotations
