@@ -6,7 +6,12 @@
 Builds the hand-written nearest-code kernels from ``vqvae_tpu_torch/csrc``
 (the tensor-core kernel, route "mma", and the CUDA-core kernel, route "fma")
 and drives the port's main path at full width, in phases; any failed phase
-stops the script with a non-zero exit and no result line:
+stops the script with a non-zero exit and no result line. Every search of a
+main path runs under ``quantizer_impl="auto"``, and each phase's count of
+kernel launches is the one ``ops/quantizer.py::_auto_impl`` predicts for its
+shapes (``auto_launches``): the kernel where the rule says "pallas", none
+where it sends the search to the matmul branch. The paths at 16,384 rows and
+more launch the kernels; the fp32 searches at 2,048 rows take the branch.
 
 1. the card (nvidia-smi name and power limit), the kernels' build report
    (``-Xptxas -v``: registers, shared memory, spills) and the count of
@@ -26,18 +31,18 @@ stops the script with a non-zero exit and no result line:
    gets code 0, and the plain version takes the first NaN;
 3. latent extraction, the main path: the trained bf16 checkpoint
    (artifacts/e2e_r5, "default" quantizer) over the 12,000 synthetic CIFAR
-   images at batch 256, which must launch the "mma" kernel 47 times; its
+   images at batch 256, which must launch the "mma" kernel 47 times (the rule); its
    codes are held against the plain version on the same latents under the
    near-tie rule;
 4. reconstruction with the trained fp32/"highest" checkpoint (artifacts/e2e_r4)
    on 1,024 validation images through ``reconstruct`` and ``forward`` (2
-   launches of the "fma" kernel), held against the port on the CPU on 8 images;
+   launches of the "fma" kernel at 65,536 rows), held against the port on the CPU on 8 images;
 5. times with CUDA events at the main path's shapes (N = 2,048, 16,384 and
    65,536 at K = 512, D = 64) and the two D = 256 shapes of phase 2, for each
    mode: the kernel the dispatch picks, the "fma" kernel where that is
    another, the bound on an H100 SXM, the launch floor (an empty kernel), the
-   plain version, and one PyTorch matmul + argmin as a yardstick (the port
-   never calls it);
+   plain version, and the matmul branch (``nearest_code_matmul``, the
+   ``library_ms``: what "jnp" runs on the card, z_q's gather included);
 6. ``torch.profiler`` over an extraction of 2,560 images: device time by
    kernel and the share of the wall time in which the card was busy;
 7. training, fp32 / "highest" (the config's default): ``train_vqvae`` over the
@@ -53,8 +58,9 @@ stops the script with a non-zero exit and no result line:
    and with an EMA codebook in fp32 (20 updates, 20 "fma" launches; the EMA
    counts must sum to 16,384 * (1 - 0.99^20) and the codebook equal
    means / smoothed counts); the same 5 updates run twice from one state, in
-   fp32 ("fma"), bf16 ("mma") and with the EMA codebook, must give the same
-   train state and metrics, 0 difference;
+   fp32 ("fma"), bf16 ("mma"), with the EMA codebook and in fp32 at batch 32
+   (2,048 rows: the matmul branch under "auto"), must give the same train
+   state and metrics, 0 difference;
 9. times of a train step (batch 32 and 256 in fp32, 256 in bf16), of the
    optimizer update, the scatter-add backward alone (``index_add_``, as it
    was, beside ``scatter_add_rows``, as it is) and the EMA update alone, and a
@@ -123,7 +129,8 @@ stops the script with a non-zero exit and no result line:
    ``reconstruct``, ``smooth``) after the command's ImportError; (d)
    ``train-vqvae --dataset BLOCK``, 20 updates at batch 256 on a synthetic
    BLOCK file: finite metrics, 20 "fma" launches; (e) ``checked`` around a
-   train step: nothing on a healthy batch, a NaN in the input named by op.
+   train step at batch 32 (the matmul branch): nothing on a healthy batch, a
+   NaN in the input named by op.
 16. the port's benchmark (``vqvae_tpu_torch/bench``): ``benchmark`` through
    ``vqvae_tpu_torch.cli.main`` at its defaults, whose one JSON line must
    hold finite positive rates (``value``, ``serving_value``, the measured
@@ -140,12 +147,14 @@ stops the script with a non-zero exit and no result line:
    ``run`` through ``parity.main`` for 300 fp32 updates and 300 bf16
    updates of the fleets' configuration into a temporary directory: the
    files' keys and shapes, finite curves, the last 100 updates' recon mean
-   below the first 100's, exactly 300 "fma" and 300 "mma" launches; ``report``
+   below the first 100's, the launches the rule predicts at 2,048 rows (fp32:
+   none, the matmul branch; bf16: 300 "mma"); ``report``
    on those two runs against the committed reference and JAX fleets returns
    every field and writes nothing under ``artifacts/`` or
    ``artifacts_torch/`` (both listed before and after); and the config's
-   ``quantizer_impl`` on the card: ``quantize`` under "jnp" launches nothing
-   and gives the plain version's bits, "auto" and "pallas" one kernel each.
+   ``quantizer_impl`` on the card: ``quantize`` under "jnp" (the matmul
+   branch) launches nothing, "pallas" one kernel, "auto" what the rule says,
+   each within the near-tie rule of the plain version.
 18. the last JAX-side tools (``vqvae_tpu_torch/bench/{e2e,conv_strategy,scaling}.py``):
    ``e2e.main(["run", ...])`` into a temporary directory, each of its four
    stages in a process of its own, cut for this script's time limit only to
@@ -158,6 +167,15 @@ stops the script with a non-zero exit and no result line:
    rewrite of the k4/s2 convs against cuDNN's strided conv in fp32 with TF32
    off (relative error < 1e-5); one weak-scaling worker at one rank (NCCL)
    with a finite positive rate and its "fma" launches.
+19. (run right after phase 5) the measured dispatch of "auto": at six swept
+   shapes (``AUTO_SHAPES``: in "highest" four go to the matmul branch and two
+   to the kernel, in "default" and "high" two and four), in every mode,
+   ``quantize`` under "auto" launches exactly what ``_auto_impl`` predicts; the
+   branch, the kernel and "auto" agree with the plain version under the
+   near-tie rule; with codebook row 300 and z row 7 NaN the branch and "auto"
+   follow the kernels' NaN rule (no row on code 300, row 7 on code 0, the rest
+   as the kernel's but for near-ties); and ``nearest_code`` under "auto"
+   against "pallas" in turns.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -248,15 +266,49 @@ PARITY_STEPS = 300
 # phase 18: the pipeline's scale, cut for this script's time limit (train-prior
 # runs epochs 1 .. epochs - 1, so 2 is one epoch), and its launches: one search
 # an update, and 47 batches of 256 in the extraction of 12,000 images
-E2E_SMOKE_FLAGS = ("--n_updates", "200", "--epochs", "2", "--n_samples", "10")
-E2E_LAUNCHES = {"train_vqvae": {"mma": 200, "fma": 0}, "extract_latents": {"mma": 47, "fma": 0},
-                "train_prior": {"mma": 0, "fma": 0}, "sample": {"mma": 0, "fma": 0}}
+E2E_UPDATES = 200
+E2E_SMOKE_FLAGS = ("--n_updates", str(E2E_UPDATES), "--epochs", "2", "--n_samples", "10")
+E2E_IMAGES = 12_000                   # the synthetic CIFAR set that extract-latents encodes
+# phase 19: swept shapes on both sides of "auto"'s rule (artifacts_torch/autotune_h100.json):
+# in "highest" four go to the matmul branch and two to the kernel, in "default"
+# and "high" two to the branch and four to the kernel
+AUTO_SHAPES = ((2048, 8192, 256), (2048, 2048, 256), (4096, 512, 128), (2048, 512, 64),
+               (16_384, 512, 64), (4096, 512, 64))
 DEVICE = "cuda"
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def auto_launches(shapes, precision: str) -> dict:
+    """The kernel launches by route of one search under "auto" at each (N, K,
+    D) of ``shapes``, as ``_auto_impl`` predicts them: one on ``kernel_route``'s
+    route where it says "pallas", none where it says "jnp" (the matmul branch
+    launches no kernel of ours)."""
+    from vqvae_tpu_torch.ops import cuda_quantizer
+    from vqvae_tpu_torch.ops.quantizer import _auto_impl
+
+    counts = {route: 0 for route in cuda_quantizer.ROUTES}
+    for n, k, d in shapes:
+        if _auto_impl(n, k, d, precision, True) == "pallas":
+            counts[cuda_quantizer.kernel_route(precision, d)] += 1
+    return counts
+
+
+def extraction_shapes(n_images: int, batch: int = 256, grid: int = 64, k: int = 512, d: int = 64) -> list:
+    """The (N, K, D) of each search of an extraction of ``n_images`` in batches."""
+    return [(grid * min(batch, n_images - s), k, d) for s in range(0, n_images, batch)]
+
+
+def e2e_launches() -> dict:
+    """What ``auto`` predicts for the e2e stages at ``E2E_SMOKE_FLAGS``: bf16 /
+    "default" updates at batch 32 and the extraction of ``E2E_IMAGES`` at 256."""
+    none = auto_launches([], "default")
+    return {"train_vqvae": auto_launches([(64 * 32, 512, 64)] * E2E_UPDATES, "default"),
+            "extract_latents": auto_launches(extraction_shapes(E2E_IMAGES), "default"),
+            "train_prior": none, "sample": none}
 
 
 def tensor_core_counts(cuda_quantizer, lib_path) -> dict:
@@ -1131,7 +1183,8 @@ def parallel_phase(smi: str, dataset) -> dict:
     _s1, history1, _t1 = train_vqvae(vq, cfg1, dataset=dataset, resume=True, verbose=False, device=DEVICE)
     torch.cuda.synchronize()
     launches = {"one process": dict(cuda_quantizer.launches_by_route)}
-    check(launches["one process"] == {"mma": 0, "fma": 5}, f"one process: {launches['one process']}")
+    want = auto_launches([(64 * PARALLEL_BATCH, 512, 64)] * 5, "highest")
+    check(launches["one process"] == want, f"one process: {launches['one process']}, auto's rule {want}")
 
     t0 = time.perf_counter()
     port = free_port()
@@ -1239,8 +1292,10 @@ def parallel_phase(smi: str, dataset) -> dict:
     t0 = time.perf_counter()
     recs = run_clusters(clusters, work)
     rows["clusters_s"] = time.perf_counter() - t0
+    # the 2 x 2 runs search sharded codebooks, which keep their kernels under
+    # every impl; the one NCCL rank searches the whole codebook under "auto"
     for name, want in (("bf16", {"mma": 10, "fma": 0}), ("ema", {"mma": 0, "fma": 10}),
-                       ("nccl", {"mma": 0, "fma": 5})):
+                       ("nccl", auto_launches([(64 * PARALLEL_BATCH, 512, 64)] * 5, "highest"))):
         got = [r["launches"] for r in recs[name]]
         check(all(g == want for g in got), f"{name}: launches {got}, expected {want} a rank")
         launches[name] = got
@@ -1510,25 +1565,109 @@ def listing(path: str) -> dict:
     return files
 
 
+def auto_dispatch_phase(smi: str) -> dict:
+    """Phase 19: the measured dispatch of ``quantizer_impl="auto"``
+    (``ops/quantizer.py::_auto_impl``) at ``AUTO_SHAPES`` in every mode:
+    ``quantize`` under "auto" launches exactly what the rule predicts; the
+    matmul branch, the kernel and "auto"'s codes agree with the plain version
+    under the near-tie rule, and z_q is the codebook's rows; with codebook row
+    300 and z row 7 NaN both routes and "auto" follow the kernels' NaN rule
+    (no row on code 300, row 7 on code 0, the rest departing only at
+    near-ties); and the search through ``nearest_code`` under "auto" against
+    "pallas", timed in turns. Returns the rows."""
+    from functools import partial
+
+    from vqvae_tpu_torch.ops import cuda_quantizer
+    from vqvae_tpu_torch.ops.quantizer import (
+        _auto_impl,
+        compare_assignments,
+        nearest_code,
+        nearest_code_matmul,
+        nearest_code_torch,
+        quantize,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    rows = []
+    for n, k, d in AUTO_SHAPES:
+        z = torch.randn(n, d, device=DEVICE, generator=gen)
+        cb = torch.randn(k, d, device=DEVICE, generator=gen)
+        for mode in MODES:
+            impl = _auto_impl(n, k, d, mode, True)
+            want = auto_launches([(n, k, d)], mode)
+            cuda_quantizer.reset_launch_counts()
+            q = quantize(z.reshape(n // 64, 8, 8, d), cb, 0.25, precision=mode,
+                         search=partial(nearest_code, impl="auto"))
+            torch.cuda.synchronize()
+            got = dict(cuda_quantizer.launches_by_route)
+            check(got == want, f"quantize under auto at {(n, k, d)} {mode}: launched {got}, "
+                  f"_auto_impl predicts {want} ({impl})")
+            _zq, idx_plain = nearest_code_torch(z, cb, mode)
+            agree = {}
+            for name, (zq, idx) in (("matmul", nearest_code_matmul(z, cb, mode)),
+                                    ("kernel", cuda_quantizer.nearest_code_cuda(z, cb, mode)),
+                                    ("auto", (None, q.indices.reshape(-1)))):
+                mism, near, _gap = compare_assignments(z, cb, idx, idx_plain, mode)
+                agree[name] = mism - near
+                check(mism == near, f"{name} at {(n, k, d)} {mode}: {mism - near} departures from the "
+                      f"plain version beyond near-ties")
+                check(zq is None or torch.equal(zq, cb.index_select(0, idx)), f"{name}: z_q is not cb[idx]")
+            z_nan, cb_nan = z.clone(), cb.clone()
+            z_nan[7], cb_nan[300] = float("nan"), float("nan")
+            finite = torch.arange(n, device=DEVICE) != 7
+            idx_m = nearest_code_matmul(z_nan, cb_nan, mode)[1]
+            idx_k = cuda_quantizer.nearest_code_indices(z_nan, cb_nan, mode)
+            idx_a = nearest_code(z_nan, cb_nan, mode, impl="auto")[1]
+            for name, idx in (("matmul", idx_m), ("auto", idx_a)):
+                on_nan = int((idx == 300).sum())
+                mism, near, _gap = compare_assignments(z_nan[finite], cb_nan.nan_to_num(0.0), idx[finite],
+                                                       idx_k[finite], mode)
+                check(on_nan == 0 and int(idx[7]) == 0 and int(idx_k[7]) == 0
+                      and int((idx_k == 300).sum()) == 0 and mism == near,
+                      f"{name} at {(n, k, d)} {mode} breaks the kernels' NaN rule: {on_nan} rows on the NaN "
+                      f"code, row 7 on {int(idx[7])}, {mism - near} departures from the kernel beyond near-ties")
+            t = alternate({"pallas": lambda: nearest_code(z, cb, mode, impl="pallas"),
+                           "auto": lambda: nearest_code(z, cb, mode, impl="auto")},
+                          lambda fn: time_ms(fn, iters=20, warmup=3))
+            row = {"shape": [n, k, d], "mode": mode, "auto": impl, "launches": got,
+                   "departures_beyond_near_ties": agree, "pallas_ms": t["pallas"], "auto_ms": t["auto"]}
+            rows.append(row)
+            print(f"[19] {json.dumps(row)}")
+    for mode in ("highest", "default"):
+        sides = [r["auto"] for r in rows if r["mode"] == mode]
+        check(sides.count("jnp") >= 2 and sides.count("pallas") >= 2,
+              f"AUTO_SHAPES do not go each way at least twice in {mode}: {sides}")
+    print(f"[19] card: {smi}; nearest_code under auto and pallas, CUDA events over 20 calls behind a "
+          f"device spin, the faster of two turns")
+    return {"rows": rows}
+
+
 def parity_phase(smi: str) -> dict:
-    """Phase 17: the fleets' ``run`` (fp32, route "fma"; bf16, route "mma")
-    for ``PARITY_STEPS`` updates each and ``report`` on them against the
-    committed fleets, then ``quantizer_impl`` on the card. Returns the rows and
-    the launches by route of each run and of the dispatch check."""
+    """Phase 17: the fleets' ``run`` (fp32 and bf16, each search where
+    ``_auto_impl`` sends it at 2,048 rows) for ``PARITY_STEPS`` updates each
+    and ``report`` on them against the committed fleets, then
+    ``quantizer_impl`` on the card. Returns the rows and the launches by route
+    of each run and of the dispatch check."""
     import tempfile
     from functools import partial
 
     from vqvae_tpu_torch.bench import parity
     from vqvae_tpu_torch.config import QUANTIZER_IMPLS
     from vqvae_tpu_torch.ops import cuda_quantizer
-    from vqvae_tpu_torch.ops.quantizer import compare_assignments, nearest_code, nearest_code_torch, quantize
+    from vqvae_tpu_torch.ops.quantizer import (
+        _auto_impl,
+        compare_assignments,
+        nearest_code,
+        nearest_code_torch,
+        quantize,
+    )
 
     records = {d: os.path.join(ROOT, d) for d in ("artifacts", "artifacts_torch")}
     before = {d: listing(path) for d, path in records.items()}
     rows, launches = {"runs": {}}, {}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-        for mode, flags, route in (("fp32", (), "fma"), ("bf16", parity.BF16_FLAGS, "mma")):
+        for mode, flags, precision in (("fp32", (), "highest"), ("bf16", parity.BF16_FLAGS, "default")):
             out = os.path.join(tmp, parity.port_file(mode, 1))
             cuda_quantizer.reset_launch_counts()
             t0 = time.perf_counter()
@@ -1536,16 +1675,17 @@ def parity_phase(smi: str) -> dict:
                                "--device", DEVICE, *flags]) == 0, f"parity run {mode} did not exit 0")
             wall = time.perf_counter() - t0
             launches[mode] = dict(cuda_quantizer.launches_by_route)
-            other = "mma" if route == "fma" else "fma"
-            check(launches[mode][route] == PARITY_STEPS and launches[mode][other] == 0,
-                  f"parity run {mode} launched {launches[mode]}, not {PARITY_STEPS} on {route}")
+            want = auto_launches([(64 * 32, 512, 64)] * PARITY_STEPS, precision)  # batch 32
+            check(launches[mode] == want, f"parity run {mode} launched {launches[mode]}, auto's rule {want}")
             with np.load(out) as d:
                 keys = set(d.files)
                 curves = {key: d[key] for key in parity.CURVES}
-                device, x_var = str(d["device"]), float(d["x_train_var"])
+                device, x_var, search = str(d["device"]), float(d["x_train_var"]), str(d["search"])
             want = set(parity.CURVES) | {"x_train_var", "device", "wall_seconds", "conv_precision",
-                                         "compute_dtype", "quantizer_precision", "ema_codebook"}
+                                         "compute_dtype", "quantizer_precision", "ema_codebook", "search"}
             check(keys == want, f"parity run {mode} wrote the keys {sorted(keys)}")
+            took = "+".join(r for r in cuda_quantizer.ROUTES if launches[mode][r]) or "matmul"
+            check(search == took, f"parity run {mode} recorded the search {search!r}, not {took!r}")
             for key, c in curves.items():
                 check(c.shape == (PARITY_STEPS,) and c.dtype == np.float32 and np.isfinite(c).all(),
                       f"parity run {mode}: {key} {c.shape} {c.dtype} is not {PARITY_STEPS} finite float32")
@@ -1586,26 +1726,27 @@ def parity_phase(smi: str) -> dict:
     impl_rows = {}
     launches["impl"] = {route: 0 for route in cuda_quantizer.ROUTES}
     for precision in ("highest", "default"):
-        z_ref, idx_ref = nearest_code_torch(z.reshape(-1, 64), cb, precision)
+        _zq_ref, idx_ref = nearest_code_torch(z.reshape(-1, 64), cb, precision)
         for impl in QUANTIZER_IMPLS:
             cuda_quantizer.reset_launch_counts()
             q = quantize(z, cb, 0.25, precision=precision, search=partial(nearest_code, impl=impl))
             torch.cuda.synchronize()
             n = dict(cuda_quantizer.launches_by_route)
             idx = q.indices.reshape(-1)
-            if impl == "jnp":
-                check(sum(n.values()) == 0, f"quantize under jnp launched {n}")
-                # z_q is the straight-through z + (z_q - z) of the plain version's rows
-                check(torch.equal(idx, idx_ref) and torch.equal(q.z_q, z + (z_ref.reshape(z.shape) - z)),
-                      f"quantize under jnp ({precision}) is not the plain version's bits")
-                mism = 0
-            else:
-                check(sum(n.values()) == 1 and n[cuda_quantizer.kernel_route(precision, 64)] == 1,
-                      f"quantize under {impl} ({precision}) launched {n}, not one kernel")
-                mism, near, _gap = compare_assignments(z.reshape(-1, 64), cb, idx, idx_ref, precision)
-                check(mism == near, f"quantize under {impl} ({precision}): {mism - near} departures beyond near-ties")
-                for route, c in n.items():
-                    launches["impl"][route] += c
+            # "jnp" is the matmul branch, "pallas" the kernel, "auto" what the rule says
+            route = _auto_impl(32 * 64, 512, 64, precision, True) if impl == "auto" else impl
+            want = {r: int(route == "pallas" and r == cuda_quantizer.kernel_route(precision, 64))
+                    for r in cuda_quantizer.ROUTES}
+            check(n == want, f"quantize under {impl} ({precision}) launched {n}, not {want}")
+            mism, near, _gap = compare_assignments(z.reshape(-1, 64), cb, idx, idx_ref, precision)
+            check(mism == near, f"quantize under {impl} ({precision}): {mism - near} departures from the "
+                  f"plain version beyond near-ties")
+            # z_q is the straight-through z + (z_q - z) of the codebook's own rows
+            check(torch.equal(q.z_q, z + (cb.index_select(0, idx).reshape(z.shape) - z)),
+                  f"quantize under {impl} ({precision}): z_q is not the straight-through codebook rows")
+            if impl != "jnp":
+                for r, c in n.items():
+                    launches["impl"][r] += c
             impl_rows[f"{impl}/{precision}"] = {"launches": n, "mismatches_vs_plain": mism}
     rows["impl"] = impl_rows
     print(f"[17] quantizer_impl on the card: {json.dumps(impl_rows)}")
@@ -1641,8 +1782,8 @@ def pipeline_phase(smi: str) -> dict:
               f"{wall['device']!r}, not {smi!r}")
         absent = [name for name in e2e.RECORDS if not os.path.exists(os.path.join(out, name))]
         check(not absent, f"the e2e run left no {absent}")
-        check(wall["launches"] == E2E_LAUNCHES, f"the e2e stages launched {wall['launches']}, "
-              f"not {E2E_LAUNCHES}")
+        check(wall["launches"] == e2e_launches(), f"the e2e stages launched {wall['launches']}, "
+              f"not {e2e_launches()} (auto's rule)")
         launches["e2e"] = {route: sum(counts[route] for counts in wall["launches"].values())
                            for route in ("mma", "fma")}
         payload = e2e.report(out)
@@ -1659,9 +1800,10 @@ def pipeline_phase(smi: str) -> dict:
     print(f"[18] space-to-depth k4/s2 rewrite in fp32, TF32 off: {json.dumps(rows['conv_exact_rel_err'])}")
     t0 = time.perf_counter()
     row = rows["scaling"] = scaling.launch_workers(DEVICE, 1)
+    routes = auto_launches([(64 * scaling.PER_RANK_BATCH, 512, 64)], "highest")  # each call's search
     check(math.isfinite(row["images_per_sec"]) and row["images_per_sec"] > 0
-          and row["launches"]["fma"] > 0 and row["launches"]["mma"] == 0,
-          f"the scaling worker's row {row}")
+          and all((row["launches"][r] > 0) == (routes[r] > 0) for r in routes),
+          f"the scaling worker's row {row}, auto's rule a call {routes}")
     launches["scaling"] = row["launches"]
     print(f"[18] scaling worker, one rank: {json.dumps(row)} in {time.perf_counter() - t0:.1f} s ({smi})")
     rows["launches"] = launches
@@ -1710,11 +1852,12 @@ def rest_phase(smi: str, dataset, codes: np.ndarray) -> dict:
               f"names) holds {steps} and {kernel[:1]}; kernel launches {launches['profile']}")
         check(rc == 0 and len(files) == 1 and steps == [f"train_step_{i}" for i in range(5)] and kernel,
               "the profile trace lacks a step or the fma kernel")
-        check(launches["profile"] == {"mma": 0, "fma": 6}, f"profile: launches {launches['profile']}")
+        want = auto_launches([(64 * TRAIN_BATCH, 512, 64)] * 6, "highest")
+        check(launches["profile"] == want, f"profile: launches {launches['profile']}, auto's rule {want}")
 
         # -- (c) viz on both trained checkpoints --------------------------------------
         have_mpl = importlib.util.find_spec("matplotlib") is not None
-        for name, ckpt, route in (("e2e_r4", R4, "fma"), ("e2e_r5", R5, "mma")):
+        for name, ckpt, mode in (("e2e_r4", R4, "highest"), ("e2e_r5", R5, "default")):
             out_dir = os.path.join(tmp, "viz", name)
             cuda_quantizer.reset_launch_counts()
             if have_mpl:
@@ -1743,7 +1886,7 @@ def rest_phase(smi: str, dataset, codes: np.ndarray) -> dict:
                 check(rec.shape == (16, 32, 32, 3) and np.isfinite(rec).all()
                       and all(np.isfinite(v).all() for v in curves.values()), f"viz {name}: not finite")
             launches[f"viz {name}"] = dict(cuda_quantizer.launches_by_route)
-            want = {"mma": 0, "fma": 0, route: 1}
+            want = auto_launches([(64 * 16, 512, 64)], mode)  # 16 images
             check(launches[f"viz {name}"] == want, f"viz {name}: launches {launches[f'viz {name}']}, want {want}")
 
         # -- (d) train-vqvae on a synthetic BLOCK file ---------------------------------
@@ -1765,7 +1908,8 @@ def rest_phase(smi: str, dataset, codes: np.ndarray) -> dict:
         check(rc == 0 and step == 19 and len(m["loss_vals"]) == 20 and hp["dataset"] == "BLOCK"
               and all(np.isfinite(m[k]).all() for k in ("loss_vals", "recon_errors", "perplexities")),
               "training on BLOCK failed or a metric is not finite")
-        check(launches["block"] == {"mma": 0, "fma": 20}, f"BLOCK: launches {launches['block']}")
+        want = auto_launches([(64 * TRAIN_BATCH, 512, 64)] * 20, "highest")  # frames resized to 32 x 32
+        check(launches["block"] == want, f"BLOCK: launches {launches['block']}, auto's rule {want}")
 
     # -- (e) checked around one train step -------------------------------------------
     train, _val, x_train_var, _info = dataset
@@ -1789,7 +1933,8 @@ def rest_phase(smi: str, dataset, codes: np.ndarray) -> dict:
           f"throw() raised {raised!r}; launches {launches['checked']}")
     check(err.get() is None and math.isfinite(float(m["loss"])), f"a healthy step was flagged: {err!r}")
     check(raised is not None and raised.startswith("aten."), "a NaN in the input was not caught")
-    check(launches["checked"] == {"mma": 0, "fma": 2}, f"checked: launches {launches['checked']}")
+    want = auto_launches([(64 * 32, 512, 64)] * 2, "highest")
+    check(launches["checked"] == want, f"checked: launches {launches['checked']}, auto's rule {want}")
     rows["launches"] = launches
     return rows
 
@@ -1803,6 +1948,7 @@ def main() -> int:
     from vqvae_tpu_torch.data.datasets import load_dataset
     from vqvae_tpu_torch.ops import cuda_quantizer
     from vqvae_tpu_torch.ops.quantizer import (
+        _auto_impl,
         code_scores,
         compare_assignments,
         nearest_code_torch,
@@ -1922,8 +2068,9 @@ def main() -> int:
     print(f"[3] extract_latents: {codes.shape} in {dt:.3f} s = {len(data) / dt:.0f} images/s "
           f"(host clock, data staged from host), kernel launches {cuda_quantizer.launches} "
           f"by route {launches_main}")
-    check(launches_main == {"mma": n_batches, "fma": 0} and cuda_quantizer.launches == n_batches,
-          f"expected {n_batches} launches, all on the mma route, got {launches_main}")
+    want_main = auto_launches(extraction_shapes(len(data)), "default")
+    check(launches_main == want_main and cuda_quantizer.launches == sum(want_main.values()),
+          f"expected {want_main} launches (auto's rule at {n_batches} batches), got {launches_main}")
     rates = []
     for _ in range(2):  # the spread of the host-clock rate
         t0 = time.perf_counter()
@@ -1965,8 +2112,8 @@ def main() -> int:
           f"recon_mse={mse:.6f} kernel launches {launches_rec}")
     check(rec.shape == batch.shape and np.isfinite(rec).all(), "reconstruction not finite")
     check(math.isfinite(float(loss)) and math.isfinite(float(perp)), "loss/perplexity not finite")
-    check(launches_rec == {"mma": 0, "fma": 2},
-          f"expected 2 launches, both on the fma route, got {launches_rec}")
+    want_rec = auto_launches([(64 * len(batch), 512, 64)] * 2, "highest")
+    check(launches_rec == want_rec, f"expected {want_rec} launches (auto's rule), got {launches_rec}")
     check(float(np.abs(rec - x_hat.cpu().numpy()).max()) <= 1e-5, "reconstruct != forward x_hat")
     # the card against the port on the CPU (TF32 off on the card for "highest")
     model_cpu, _m, _h = load_model(R4, device="cpu")
@@ -2010,6 +2157,9 @@ def main() -> int:
           f"behind a device spin so the host's pace is not in them (call_ms: without the spin), "
           f"the faster of two turns")
     main_rows = {r["mode"]: r for r in rows if tuple(r["shape"]) == MAIN_SHAPE}
+    t_auto = time.perf_counter()
+    auto_dispatch_phase(smi)
+    print(f"[19] phase 19 took {time.perf_counter() - t_auto:.1f} s")
 
     # -- phase 6: where the extraction time goes ------------------------------
     profile_device("6", "extract_latents over 2560 images",
@@ -2034,7 +2184,8 @@ def main() -> int:
           f"mean of steps 0-9 {first:.6f}, of steps 50-59 {last:.6f}; loss {history7.loss_vals[0]:.6f} "
           f"-> {history7.loss_vals[-1]:.6f}; perplexity {history7.perplexities[0]:.3f} -> "
           f"{history7.perplexities[-1]:.3f}")
-    check(launches_fp32 == {"mma": 0, "fma": 60}, f"expected 60 fma launches, got {launches_fp32}")
+    want_fp32 = auto_launches([(64 * TRAIN_BATCH, 512, 64)] * 60, "highest")
+    check(launches_fp32 == want_fp32, f"expected {want_fp32} launches (auto's rule), got {launches_fp32}")
     check(state7.step == 60 and state7.optimizer.count == 60 and len(history7.loss_vals) == 60,
           "the run did not take 60 updates")
     check(trainer7._device_data is not None and trainer7._device_data.device.type == dev.type,
@@ -2111,7 +2262,8 @@ def main() -> int:
     print(f"[8] train_vqvae bf16/default: 20 updates at batch {TRAIN_BATCH}, kernel launches {launches_bf16}; "
           f"recon_error {history8.recon_errors[0]:.6f} -> {history8.recon_errors[-1]:.6f}, "
           f"loss {history8.loss_vals[0]:.6f} -> {history8.loss_vals[-1]:.6f}")
-    check(launches_bf16 == {"mma": 20, "fma": 0}, f"expected 20 mma launches, got {launches_bf16}")
+    want_bf16 = auto_launches([(64 * TRAIN_BATCH, 512, 64)] * 20, "default")
+    check(launches_bf16 == want_bf16, f"expected {want_bf16} launches (auto's rule), got {launches_bf16}")
     check(np.isfinite(history8.loss_vals).all() and np.isfinite(history8.perplexities).all(),
           "bf16 training metrics not finite")
     check(all(p.dtype == torch.float32 and bool(torch.isfinite(p).all())
@@ -2132,7 +2284,8 @@ def main() -> int:
           f"ema_counts.sum() {counts_sum:.3f} ({64 * TRAIN_BATCH} * (1 - 0.99^20) = {want_sum:.3f}); "
           f"|codebook - means / smoothed| max {cb_err:.3g}; loss {history_e.loss_vals[0]:.6f} -> "
           f"{history_e.loss_vals[-1]:.6f}")
-    check(launches_ema == {"mma": 0, "fma": 20}, f"expected 20 fma launches, got {launches_ema}")
+    want_ema = auto_launches([(64 * TRAIN_BATCH, 512, 64)] * 20, "highest")
+    check(launches_ema == want_ema, f"expected {want_ema} launches (auto's rule), got {launches_ema}")
     check(np.isfinite(history_e.loss_vals).all(), "EMA training metrics not finite")
     check(abs(counts_sum / want_sum - 1.0) <= 1e-4, "EMA counts do not follow the decay")
     check(cb_err <= 1e-5, "the EMA codebook is not means / smoothed counts")
@@ -2140,8 +2293,14 @@ def main() -> int:
               for m in ("mu", "nu", "nu_max")), "the EMA codebook has optimizer moments")
     repeats["bf16/default (mma)"] = same_updates_twice(_t8, idx5)
     repeats["EMA, fp32/highest (fma)"] = same_updates_twice(_te, idx5)
+    # batch 32: the fp32 search of 2,048 rows, where "auto" takes the matmul branch
+    trainer32 = VQVAETrainer(VQVAEConfig(), TrainConfig(batch_size=32), x_train_var, device=DEVICE)
+    trainer32.stage_dataset(train.data)
+    route32 = "matmul branch" if _auto_impl(64 * 32, 512, 64, "highest", True) == "jnp" else "fma"
+    repeats[f"fp32/highest at batch 32 ({route32})"] = same_updates_twice(
+        trainer32, np.arange(5 * 32).reshape(5, 32))
     for name, (diff, dmetric) in repeats.items():
-        print(f"[8] the same 5 updates twice from the same state, {name}, batch {TRAIN_BATCH}: largest "
+        print(f"[8] the same 5 updates twice from the same state, {name} (batch {TRAIN_BATCH} unless named): largest "
               f"difference of any train-state leaf {diff:.3g}, of any metric {dmetric:.3g}")
     check(all(d == 0 and m == 0 for d, m in repeats.values()),
           f"two runs of the same 5 updates part: {repeats}")

@@ -195,28 +195,62 @@ def test_cuda_wrapper_rejects_bad_inputs_on_card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("precision", MODES)
 def test_jnp_launches_no_kernel_on_card(precision):
-    """``quantizer_impl`` on the card: under "jnp" the search is the plain
-    version, bit for bit, and no kernel is launched; under "auto" and
-    "pallas" one kernel is launched (the near-tie rule against the plain
-    version)."""
+    """``quantizer_impl`` on the card: under "jnp" the search is the matmul
+    branch and no kernel is launched; under "pallas" one kernel is launched;
+    under "auto" what ``_auto_impl`` says; each within the near-tie rule of
+    the plain version."""
     from functools import partial
 
-    from vqvae_tpu_torch.ops.quantizer import quantize
+    from vqvae_tpu_torch.ops.quantizer import _auto_impl, quantize
 
     dev = _card()
     z, cb = (t.to(dev) for t in _inputs(2048, 512, 64, seed=11))
-    zq_ref, idx_ref = nearest_code_torch(z, cb, precision)
+    _zq_ref, idx_ref = nearest_code_torch(z, cb, precision)
     before = cuda_quantizer.launches
     zq, idx = nearest_code(z, cb, precision, impl="jnp")
     q = quantize(z.reshape(32, 8, 8, 64), cb, 0.25, precision=precision, search=partial(nearest_code, impl="jnp"))
     torch.cuda.synchronize()
     assert cuda_quantizer.launches == before
-    assert torch.equal(idx, idx_ref) and torch.equal(zq, zq_ref)
-    assert torch.equal(q.indices.reshape(-1), idx_ref)
+    assert torch.equal(zq, cb.index_select(0, idx)) and torch.equal(q.indices.reshape(-1), idx)
+    mism, near, gap = compare_assignments(z, cb, idx, idx_ref, precision)
+    assert mism == near, ("jnp", mism, near, gap)
     for impl in ("auto", "pallas"):
+        kernel = impl == "pallas" or _auto_impl(2048, 512, 64, precision, True) == "pallas"
         before = cuda_quantizer.launches
         _zq, idx = nearest_code(z, cb, precision, impl=impl)
         torch.cuda.synchronize()
-        assert cuda_quantizer.launches == before + 1, impl
+        assert cuda_quantizer.launches == before + int(kernel), impl
         mism, near, gap = compare_assignments(z, cb, idx, idx_ref, precision)
         assert mism == near, (impl, mism, near, gap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", MODES)
+@pytest.mark.parametrize("shape", [(2048, 512, 64), (4096, 2048, 256), (16384, 8192, 128)])
+def test_matmul_branch_on_card(shape, precision):
+    """The matmul branch against the plain version and both kernels at three
+    swept shapes: codes within the near-tie rule, z_q the codebook's rows, no
+    kernel launched; with codebook row 300 and z row 7 NaN it follows the
+    kernels' NaN rule (no row on code 300, row 7 on code 0)."""
+    from vqvae_tpu_torch.ops.quantizer import nearest_code_matmul
+
+    dev = _card()
+    n, k, d = shape
+    z, cb = (t.to(dev) for t in _inputs(n, k, d, seed=12))
+    _zq, idx_ref = nearest_code_torch(z, cb, precision)
+    before = cuda_quantizer.launches
+    zq, idx = nearest_code_matmul(z, cb, precision)
+    torch.cuda.synchronize()
+    assert cuda_quantizer.launches == before
+    assert torch.equal(zq, cb.index_select(0, idx))
+    routes = dict.fromkeys((cuda_quantizer.kernel_route(precision, d), "fma"))
+    for other in [idx_ref] + [cuda_quantizer.nearest_code_indices(z, cb, precision, r) for r in routes]:
+        mism, near, gap = compare_assignments(z, cb, idx, other, precision)
+        assert mism == near, (mism, near, gap)
+    z[7], cb[300] = float("nan"), float("nan")
+    _zq, idx = nearest_code_matmul(z, cb, precision)
+    idx_k = cuda_quantizer.nearest_code_indices(z, cb, precision)
+    finite = torch.arange(n, device=dev) != 7
+    assert int((idx == 300).sum()) == 0 and int(idx[7]) == 0 and int(idx_k[7]) == 0
+    mism, near, gap = compare_assignments(z[finite], cb.nan_to_num(0.0), idx[finite], idx_k[finite], precision)
+    assert mism == near, (mism, near, gap)

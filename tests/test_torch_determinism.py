@@ -165,6 +165,19 @@ def test_vqvae_updates_repeat_bit_for_bit_on_the_card(mode):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize(("batch", "impl"), [(32, "auto"), (256, "jnp")])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_vqvae_updates_repeat_bit_for_bit_through_the_matmul_branch(batch, impl, precision):
+    """The matmul branch (cuBLAS's product, one stream, no atomics) repeats
+    too: fp32 at batch 32, where "auto" takes it in "highest", and under
+    "jnp" at batch 256."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    cfg = VQVAEConfig(quantizer_precision=precision, quantizer_impl=impl)
+    _assert_same_runs(_vqvae_twice("cuda", cfg, batch))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("batch", [32, 256])
 def test_prior_updates_repeat_bit_for_bit_on_the_card(batch):
     """The full-width prior (512 codes, 15 layers) at the reference's batch

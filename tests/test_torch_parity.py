@@ -159,6 +159,7 @@ def test_a_real_run_is_read_by_the_jax_tool(jax_tool, tmp_path):
             assert d[key].shape == (4,) and d[key].dtype == np.float32 and np.isfinite(d[key]).all()
         assert float(d["x_train_var"]) == float(j["x_train_var"])
         assert str(d["device"]) == "cpu" and "concurrent_runs" not in d.files  # the fleet's to write
+        assert str(d["search"]) == "plain"  # the CPU's search, under every impl
         for key in parity.CURVES:
             assert jax_tool._final_window(out, key) == pytest.approx(float(np.mean(d[key])), rel=1e-7)
 
@@ -276,6 +277,30 @@ def test_report_writes_nothing_without_json(tmp_path, monkeypatch, capsys):
     assert fp32["vs_jax"]["recon"]["n_torch"] == 71 and payload["modes"]["ema"]["vs_jax"]["recon"]["n_torch"] == 3
     assert set(fp32["ok"]) == {"vs_reference", "vs_jax"}
     assert _tree(ART) == before
+
+
+@pytest.mark.parametrize(("device_type", "launched", "want"), [
+    ("cpu", [], "plain"), ("cuda", [], "matmul"), ("cuda", ["fma"], "fma"), ("cuda", ["mma"], "mma"),
+    ("cuda", ["mma", "fma"], "mma+fma"),
+])
+def test_a_run_records_the_route_of_its_search(device_type, launched, want):
+    """What a run writes as ``search``: the kernels it launched, the matmul
+    branch on a card where it launched none, the plain version on the CPU."""
+    assert parity.search_route(device_type, launched) == want
+
+
+def test_report_names_the_route_the_runs_recorded(tmp_path):
+    """A run's ``search`` is its mode's route in the report; a file written
+    before runs recorded one (here the JAX fleet's) ran the kernel."""
+    for i, search in enumerate(("matmul", "matmul", None), start=1):
+        with np.load(os.path.join(ART, f"jax_5k_seed{i}.npz")) as d:
+            fields = {key: d[key] for key in d.files}
+        if search is not None:
+            fields["search"] = search
+        np.savez(tmp_path / parity.port_file("fp32", i), **fields)
+    assert parity.report(str(tmp_path), ART)["modes"]["fp32"]["route"] == "fma+matmul"
+    os.remove(tmp_path / parity.port_file("fp32", 3))
+    assert parity.report(str(tmp_path), ART)["modes"]["fp32"]["route"] == "matmul"
 
 
 def test_report_splits_the_loss_and_describes_ema(tmp_path):

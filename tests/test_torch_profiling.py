@@ -86,7 +86,9 @@ def test_profile_command_refuses_a_missing_card(monkeypatch, tmp_path):
 @pytest.mark.gpu
 def test_profile_command_on_the_card(tmp_path):
     """On a card the trace holds the steps and the search kernel, one launch
-    a step and one for the warm-up step outside the trace."""
+    a step and one for the warm-up step outside the trace. The kernel is
+    asked for: under "auto" the fp32 search at batch 32 (2,048 rows) takes
+    the matmul branch (``ops/quantizer.py::_auto_impl``)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     from vqvae_tpu_torch.ops import cuda_quantizer
@@ -94,7 +96,7 @@ def test_profile_command_on_the_card(tmp_path):
     cuda_quantizer.reset_launch_counts()
     trace = tmp_path / "trace"
     assert cli.main(["profile", "--batch_size", "32", "--profile_steps", "4", "--trace_dir", str(trace),
-                     "--data_dir", str(tmp_path / "no_data")]) == 0
+                     "--data_dir", str(tmp_path / "no_data"), "--quantizer_impl", "pallas"]) == 0
     names = _trace_names(trace)
     assert {f"train_step_{i}" for i in range(4)} <= names
     assert any("nearest_code" in n for n in names)

@@ -66,6 +66,7 @@ from vqvae_tpu_torch.bench.timing import device_line
 from vqvae_tpu_torch.config import TrainConfig, VQVAEConfig
 from vqvae_tpu_torch.data.datasets import load_dataset
 from vqvae_tpu_torch.device import resolve_device
+from vqvae_tpu_torch.ops import cuda_quantizer
 from vqvae_tpu_torch.train.vqvae_train import train_vqvae
 
 WINDOW = 100  # final-window size for the convergence comparison
@@ -89,8 +90,10 @@ class Fleet(NamedTuple):
 BF16_FLAGS = ("--compute_dtype", "bfloat16", "--conv_precision", "default", "--quantizer_precision", "default")
 # Pre-registered before the first fleet ran, in the order they run; fp32's
 # seeds 21-40 were registered after its first 20 had run, before they ran.
-# Search route on the card: fp32, ema and high "fma" (the "highest" search),
-# bf16 and ema_bf16 "mma" (the "default" search).
+# Search route on the card under "auto" at the fleets' 2,048 rows: fp32 and
+# ema the matmul branch (the "highest" search; "fma" before the measured
+# dispatch), high and bf16 and ema_bf16 "mma" ("high" and "default"). Each
+# run's file records the route it took (``search``).
 FLEETS = (
     Fleet("fp32", tuple(range(1, 41)), ()),
     Fleet("bf16", tuple(range(1, 21)), BF16_FLAGS),
@@ -168,9 +171,11 @@ def run(
     dataset = load_dataset("CIFAR10", "data")
     card = device_line(dev)
     print(f"device={card} dataset={dataset[3]}", flush=True)
+    before = dict(cuda_quantizer.launches_by_route)
     t0 = time.time()
     _state, history, _trainer = train_vqvae(vq_cfg, train_cfg, dataset=dataset, device=device)
     dt = time.time() - t0
+    launched = [r for r in cuda_quantizer.ROUTES if cuda_quantizer.launches_by_route[r] > before[r]]
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     # written whole or not at all: a cut run leaves no file behind
     tmp = f"{out}.partial"
@@ -187,9 +192,18 @@ def run(
             compute_dtype=compute_dtype,
             quantizer_precision=quantizer_precision,
             ema_codebook=ema_codebook,
+            search=search_route(dev.type, launched),
         )
     os.replace(tmp, out)
     print(f"saved {out} ({steps} steps in {dt:.0f}s)", flush=True)
+
+
+def search_route(device_type: str, launched: List[str]) -> str:
+    """The route a run's searches took: the kernels it launched, the matmul
+    branch on a card where it launched none, the plain version on the CPU."""
+    if device_type != "cuda":
+        return "plain"
+    return "+".join(launched) or "matmul"
 
 
 # -- fleet -------------------------------------------------------------------
@@ -461,7 +475,8 @@ def _run_row(mode: str, path: str) -> dict:
                "steps": int(len(d["recon_errors"]))}
         row.update(_finals(path))
         row.update(wall_seconds=field("wall_seconds", float), concurrent_runs=field("concurrent_runs", int),
-                   device=field("device", str), quantizer_precision=field("quantizer_precision", str))
+                   device=field("device", str), quantizer_precision=field("quantizer_precision", str),
+                   search=field("search", str))
     return row
 
 
@@ -469,8 +484,6 @@ def report(port_dir: str, ref_dir: str = "artifacts", json_out: Optional[str] = 
     """Verdicts of the port's fleets in ``port_dir`` against the reference's
     and the JAX package's in ``ref_dir`` (read only); the payload, also
     written to ``json_out`` where one is given."""
-    from vqvae_tpu_torch.ops.cuda_quantizer import kernel_route
-
     if json_out:
         _refuse_jax_records(json_out)
     ref_paths, jax_fp32 = _seed_runs(ref_dir)
@@ -496,7 +509,10 @@ def report(port_dir: str, ref_dir: str = "artifacts", json_out: Optional[str] = 
         modes[mode] = {
             "n": len(paths),
             "seeds": _seed_span(paths),
-            "route": kernel_route(precision, VQVAEConfig().embedding_dim),
+            # a file without ``search`` predates the matmul branch: its
+            # searches all launched the kernel of its mode
+            "route": "+".join(sorted({r["search"] or cuda_quantizer.kernel_route(
+                precision, VQVAEConfig().embedding_dim) for r in rows})),
             "mean_wall_seconds": float(np.mean(walls)) if walls else None,
             "vs_reference": vs_ref,
             "vs_jax": vs_jax,

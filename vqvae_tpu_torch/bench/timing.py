@@ -127,14 +127,19 @@ def host_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return 1e3 * (time.perf_counter() - t0) / iters
 
 
-def alternate(fns: dict, timer: Callable = time_ms) -> dict:
+def alternate_turns(fns: dict, timer: Callable = time_ms) -> dict:
     """Time every function in turn, then again in reverse order (a, b, b, a):
-    the faster of each one's two turns, in ms."""
+    each one's two turns, in ms."""
     names = list(fns)
     times = {name: [] for name in names}
     for name in names + names[::-1]:
         times[name].append(timer(fns[name]))
-    return {name: min(ts) for name, ts in times.items()}
+    return times
+
+
+def alternate(fns: dict, timer: Callable = time_ms) -> dict:
+    """The faster of each function's two turns of ``alternate_turns``, in ms."""
+    return {name: min(ts) for name, ts in alternate_turns(fns, timer).items()}
 
 
 def bf16_mfu(rate: float, flops: float, device: torch.device) -> Optional[float]:
@@ -168,5 +173,5 @@ def device_line(device: torch.device) -> str:
     ).stdout.strip()
 
 
-__all__ = ["SPIN_CYCLES", "alternate", "bf16_mfu", "check", "chip_name", "device_line", "host_ms",
-           "interleaved_two_point", "sync_fn", "time_ms"]
+__all__ = ["SPIN_CYCLES", "alternate", "alternate_turns", "bf16_mfu", "check", "chip_name", "device_line",
+           "host_ms", "interleaved_two_point", "sync_fn", "time_ms"]

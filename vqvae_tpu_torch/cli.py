@@ -88,9 +88,10 @@ def _add_vqvae_flags(p: argparse.ArgumentParser) -> None:
                         "training arithmetic); moot under --compute_dtype bfloat16")
     p.add_argument("--quantizer_impl", type=str, default="auto",
                    choices=["auto", "pallas", "jnp"],
-                   help="the search's forward: auto and pallas launch the hand-written "
-                        "kernel on the card, jnp the plain matmul + argmin; a loaded "
-                        "checkpoint searches as this flag says, whatever it stores")
+                   help="the search's forward on the card: pallas the hand-written kernel, "
+                        "jnp the matmul branch (cuBLAS + argmin), auto the one measured "
+                        "faster at the shape; a loaded checkpoint searches as this flag "
+                        "says, whatever it stores")
 
 
 def _add_mesh_flags(p: argparse.ArgumentParser, code_axis: bool = True) -> None:

@@ -55,9 +55,10 @@ class VQVAEConfig(_DictMixin):
     # reference's training arithmetic); "high" and "default" allow TF32.
     # Irrelevant when compute_dtype="bfloat16".
     conv_precision: str = "highest"
-    # The nearest-code search's forward (ops/quantizer.py): "auto" and
-    # "pallas" launch the hand-written kernel on the card, "jnp" takes the
-    # plain matmul + argmin there; a CPU tensor takes the plain version.
+    # The nearest-code search's forward (ops/quantizer.py): on the card
+    # "pallas" launches the hand-written kernel, "jnp" takes the matmul
+    # branch (cuBLAS + argmin) and "auto" the one measured faster at the
+    # shape (_auto_impl); a CPU tensor takes the plain version.
     quantizer_impl: str = "auto"
     # Distance arithmetic in the quantizer: "highest" (fp32), "high" (bf16x3
     # split product), "default" (bf16 operands, fp32 accumulation; near-tie

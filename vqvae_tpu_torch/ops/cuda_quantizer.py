@@ -24,13 +24,18 @@ import this module on machines without ``nvcc``.
 NaN scores. Both kernels start each row from (+inf, code 0) and take a
 score only when it is strictly less than the best so far, so a NaN score is
 never chosen: the kernels skip a NaN code and keep the rest of its tile, and
-a row whose scores are all NaN (a NaN in z) gets code 0. The plain version
-(``ops/quantizer.py::nearest_code_torch``, the CPU path) follows
-``torch.argmin``, which returns the first NaN: a NaN codebook row takes every
-row. The JAX package has two rules of its own: ``jnp.argmin`` returns the
-first NaN, and its Pallas kernel skips the whole code tile whose minimum is
-NaN (``pallas_quantizer.py:123``). Such scores arise only in a run that has
-already diverged; ``tests/test_torch_cuda_kernel.py`` pins the rule.
+a row whose scores are all NaN (a NaN in z) gets code 0. This is the rule of
+every impl on the card: the matmul branch
+(``ops/quantizer.py::nearest_code_matmul``, "jnp", and "auto" where the
+measured rule sends a shape to it) turns NaN scores into +inf before its
+argmin and gives the same codes. The plain version
+(``ops/quantizer.py::nearest_code_torch``, the CPU path under every impl)
+follows ``torch.argmin``, which returns the first NaN: a NaN codebook row
+takes every row, as ``jnp.argmin`` does in the JAX package's CPU path. The
+JAX package's Pallas kernel has a rule of its own: it skips the whole code
+tile whose minimum is NaN (``pallas_quantizer.py:123``). Such scores arise
+only in a run that has already diverged; ``tests/test_torch_cuda_kernel.py``
+and ``tests/test_torch_auto_impl.py`` pin the rules.
 
 Best values. On request (``nearest_code_indices(..., values=True)``) either
 kernel also writes each row's winning score, the float it compared:

@@ -16,16 +16,21 @@ cotangent rows (``ops/scatter.py::scatter_add_rows``, the same bits on every
 run), z gets zero. Its forward is chosen by ``impl`` (the config's
 ``quantizer_impl``), as the JAX ``_dispatch_forward`` chooses:
 
-    "auto", "pallas"  a CUDA tensor launches the hand-written kernel
-                      (ops/cuda_quantizer.py, ``kernel_route``'s route) or
-                      raises; a CPU tensor takes ``nearest_code_torch``, the
-                      kernel's arithmetic (JAX runs its kernel in interpret
-                      mode off the TPU)
-    "jnp"             ``nearest_code_torch`` on any device: the framework's
-                      unfused matmul + argmin, no kernel launch
+    "auto"    on the card, ``_auto_impl``'s measured rule: the hand-written
+              kernel (ops/cuda_quantizer.py, ``kernel_route``'s route) unless
+              the exact matmul branch ``nearest_code_matmul`` measured
+              faster at that (N, K, D) and mode on an H100
+              (``artifacts_torch/autotune_h100.json``); ties go to the kernel
+    "pallas"  on the card, the kernel, whatever the shape
+    "jnp"     on the card, ``nearest_code_matmul``: cuBLAS's product in the
+              mode's exact arithmetic, fp32 scores, argmin, gather
 
-The JAX package's ``_auto_impl`` thresholds are TPU timings and are not
-carried over: "auto" is the kernel on the card.
+On the card every impl follows the kernels' NaN rule: a NaN score is never
+chosen, and a row whose scores are all NaN gets code 0. A CPU tensor takes
+the plain version ``nearest_code_torch`` under every impl, as JAX's
+``_auto_impl`` returns "jnp" off the TPU; it follows ``torch.argmin``'s
+rule, the first NaN, as ``jnp.argmin`` does. Such scores arise only in a run
+that has already diverged.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 
 from vqvae_tpu_torch.config import check_quantizer_impl
 from vqvae_tpu_torch.ops import cuda_quantizer
+from vqvae_tpu_torch.ops.conv import conv_fp32_precision
 from vqvae_tpu_torch.ops.scatter import scatter_add_rows
 
 
@@ -100,7 +106,10 @@ def nearest_code_torch(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: (N, D), (K, D) -> (z_q (N, D), indices (N,) int32).
 
-    ``torch.argmin`` returns the first minimum, the tie rule of the kernel.
+    The search of a CPU tensor under every impl, and the tests' oracle.
+    ``torch.argmin`` returns the first minimum, the tie rule of the kernel,
+    and the first NaN: a NaN codebook row takes every row, as under
+    ``jnp.argmin`` in the JAX package's CPU path.
     """
     indices, _values = nearest_code_values_torch(z_flat, codebook, precision)
     return codebook.index_select(0, indices), indices
@@ -114,6 +123,45 @@ def _mode_terms(z: torch.Tensor, cb: torch.Tensor, precision: str) -> list:
     if precision == "default":
         return [(_bf16(z), _bf16(cb))]
     return [(z, cb)]
+
+
+def nearest_code_matmul(
+    z_flat: torch.Tensor, codebook: torch.Tensor, precision: str = "highest"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The matmul branch: (N, D), (K, D) -> (z_q (N, D), indices (N,) int32),
+    the counterpart of JAX's ``_nearest_code_fwd_jnp`` (XLA's matmul +
+    argmin) and what ``"jnp"`` runs on the card.
+
+    The scores are fp32, ||e||^2 from the unrounded codebook minus 2 z.e in
+    the mode's exact arithmetic, as in ``code_scores``: "highest" an fp32
+    product with TF32 off; "default" the bf16-rounded operands and "high"
+    the three hi/lo pairs side by side along the depth, each an fp32 product
+    with TF32 allowed, which is exact for them (a bf16 value is exact in
+    TF32, and the product of two is exact in fp32). One ``addmm`` computes
+    them; only its order of summation differs from ``code_scores``, so its
+    codes differ from the plain version's only at near-ties
+    (``compare_assignments``). The TF32 switch is set around that product
+    alone, inside ``conv_fp32_precision``'s lock, and restored after.
+
+    NaN rule: the kernels' (ops/cuda_quantizer.py). NaN scores become +inf
+    before the argmin, which takes the first minimum, so a NaN score is never
+    chosen and a row whose scores are all NaN (or +inf) gets code 0, as a
+    kernel's row that never takes a score keeps its start, (+inf, 0).
+    """
+    if precision not in ("highest", "high", "default"):
+        raise ValueError(f"precision must be highest, high or default, got {precision!r}")
+    z, cb = z_flat.float(), codebook.float()
+    e_sq = (cb * cb).sum(1)
+    terms = _mode_terms(z, cb, precision)
+    z_cat, cb_cat = terms[0] if len(terms) == 1 else (
+        torch.cat([zt for zt, _ in terms], 1), torch.cat([ct for _, ct in terms], 1))
+    with conv_fp32_precision("highest" if precision == "highest" else "default"):
+        # ||e||^2 as a vector: cuBLASLt adds it in the product's epilogue
+        # instead of a pass that first broadcasts it into the output
+        scores = torch.addmm(e_sq, z_cat, cb_cat.T, alpha=-2.0)
+    inf = float("inf")  # infinities kept as they are: nan_to_num_ would make them finite
+    indices = scores.nan_to_num_(nan=inf, posinf=inf, neginf=-inf).argmin(1).to(torch.int32)
+    return codebook.index_select(0, indices), indices
 
 
 def best_value_errors(
@@ -176,12 +224,71 @@ def compare_assignments(
     return int(rows.numel()), int((gap <= tol).sum()), float(gap.max())
 
 
+# Above this the (N, K) fp32 scores are not materialised: "auto" takes the
+# kernel, which keeps them on chip. 2 GiB is the largest score matrix the
+# sweep measured (artifacts_torch/autotune_h100.json: N = 65,536, K = 8,192,
+# on an NVIDIA H100 80GB HBM3 at 700.00 W); beyond it there is no measurement,
+# and on an 80 GB card a transient of that size beside a model's activations,
+# a caller's batch of z and the branch's own operands is the most "auto"
+# should ask for unasked.
+_SCORES_BUDGET_BYTES = 2 * 1024**3
+# The measured rule (artifacts_torch/autotune_h100.json: python -m
+# vqvae_tpu_torch.bench.quantizer --grid, 144 rows; NVIDIA H100 80GB HBM3,
+# 700.00 W, torch 2.11.0+cu128). Per mode, the regions (largest N, least
+# K * D, least D) where the matmul branch beat the kernel by at least
+# bench.quantizer.MARGIN and by more than the row's spread between turns;
+# "auto" takes the kernel everywhere else, ties included. The branch is
+# chosen only inside the sweep's box (N >= _SWEPT_MIN_N, K * D >= 2^15,
+# D >= 64): below it both routes are a handful of launches, unmeasured.
+_SWEPT_MIN_N = 2048
+_MATMUL_WINS = {
+    # "fma" (CUDA cores, 128-row blocks) fills 16 of 132 SMs at N = 2,048 and
+    # 32 at 4,096, where cuBLAS's fp32 product wins: (2048, 512, 64) 0.02984
+    # against 0.03352 ms (the narrowest win, 11%), (2048, 8192, 256) 0.30904
+    # against 1.59031, (4096, 512, 128) 0.04439 against 0.05940; the kernel
+    # wins (4096, 512, 64) (0.03410 against 0.03698) and every row from
+    # N = 16,384 ((16384, 512, 64): 0.04296 against 0.09940)
+    "highest": ((2048, 2**15, 64), (4096, 2**16, 64)),
+    # "mma" (tensor cores) loses at D = 256, where its two-plane layout takes
+    # 16-code tiles: (2048, 2048, 256) 0.10757 against 0.24031 and (4096,
+    # 8192, 256) 0.40279 against 0.87485, and at (2048, 8192, 128) 0.20079
+    # against 0.27536; it holds (2048, 4096, 128) (0.12671 against 0.13996,
+    # a 9.5% tie), (4096, 8192, 128) and every row from N = 16,384
+    "high": ((2048, 2**20, 128), (4096, 2**19, 256)),
+    # "mma" at D = 256 (32-code tiles) loses at (2048, 2048, 256) 0.06100
+    # against 0.09620, (4096, 4096, 256) 0.15531 against 0.17797 and
+    # (2048, 8192, 128) 0.15312 against 0.18039; it holds (4096, 2048, 256)
+    # and (2048, 4096, 128) (ties: 0.09342 against 0.09642, 0.09012 against
+    # 0.09136) and every row from N = 16,384
+    "default": ((2048, 2**19, 256), (2048, 2**20, 128), (4096, 2**20, 256)),
+}
+
+
+def _auto_impl(n: int, k: int, d: int, precision: str, on_card: bool) -> str:
+    """The measured-dispatch rule for impl="auto": "pallas" (the kernel) or
+    "jnp" (the matmul branch), a pure function of the shape and the mode.
+    Off the card it is "jnp", as JAX's is off the TPU."""
+    if not on_card:
+        return "jnp"
+    if 4 * n * k > _SCORES_BUDGET_BYTES:
+        return "pallas"
+    if n >= _SWEPT_MIN_N and any(n <= max_n and k * d >= min_kd and d >= min_d
+                                 for max_n, min_kd, min_d in _MATMUL_WINS[precision]):
+        return "jnp"
+    return "pallas"
+
+
 def _search_forward(z_flat, codebook, precision: str, impl: str):
-    """The forward's dispatch: the kernel on the card unless ``impl`` is
-    "jnp", the plain version otherwise (no fallback from the kernel)."""
-    if impl != "jnp" and z_flat.is_cuda:
+    """The forward's dispatch: on the card "pallas" launches the kernel,
+    "jnp" runs the matmul branch and "auto" takes what ``_auto_impl`` says;
+    a CPU tensor takes the plain version under every impl."""
+    if not z_flat.is_cuda:
+        return nearest_code_torch(z_flat, codebook, precision)
+    if impl == "auto":
+        impl = _auto_impl(z_flat.shape[0], codebook.shape[0], codebook.shape[1], precision, True)
+    if impl == "pallas":
         return cuda_quantizer.nearest_code_cuda(z_flat, codebook, precision)
-    return nearest_code_torch(z_flat, codebook, precision)
+    return nearest_code_matmul(z_flat, codebook, precision)
 
 
 class _NearestCode(torch.autograd.Function):
@@ -269,6 +376,7 @@ __all__ = [
     "code_scores",
     "compare_assignments",
     "nearest_code",
+    "nearest_code_matmul",
     "nearest_code_torch",
     "nearest_code_values_torch",
     "quantize",

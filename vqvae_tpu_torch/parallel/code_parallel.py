@@ -26,8 +26,10 @@ mesh of ranks itself is ``parallel/mesh.py::make_mesh`` (JAX's
 ``make_2d_mesh``).
 
 The sharded search keeps its kernels, with their best values, whatever the
-config's ``quantizer_impl``: the combine needs the float each kernel
-compared. JAX's ``quantize_sharded`` ignores ``impl`` too.
+config's ``quantizer_impl``: "auto"'s measured rule (``ops/quantizer.py::
+_auto_impl``) and "jnp"'s matmul branch are the unsharded search's, and the
+combine needs the float each kernel compared. JAX's ``quantize_sharded``
+ignores ``impl`` too, so the matmul branch needs no best-value output.
 """
 
 from __future__ import annotations

@@ -8,9 +8,10 @@ step and, with an EMA codebook, the EMA update:
 
 On a CUDA device the forward's nearest-code search is the hand-written kernel
 (``ops/cuda_quantizer.py``: route "fma" for the "highest" quantizer mode,
-"mma" for "default"/"high"), or the plain version where the config's
-``quantizer_impl`` is "jnp"; its backward a scatter-add in a fixed order
-(``ops/scatter.py::scatter_add_rows``).
+"mma" for "default"/"high") or the matmul branch, as the config's
+``quantizer_impl`` and, under "auto", the measured rule for the step's
+shape choose (``ops/quantizer.py``); its backward a scatter-add in a fixed
+order (``ops/scatter.py::scatter_add_rows``).
 
 Nothing inside a chunk of updates reads the device back: the step counter
 and the optimizer's bias corrections live on the host, the per-step ``loss``,
