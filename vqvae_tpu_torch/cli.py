@@ -335,7 +335,8 @@ def cmd_serve(args) -> int:
 def cmd_profile(args) -> int:
     """A ``torch.profiler`` trace of training steps: one warm-up step outside
     the trace, then ``profile_steps`` steps each under ``train_step_<i>``,
-    with a host read of the last loss inside the window."""
+    with a host read of the last loss inside the window. Each step's range
+    holds the update's spans (``utils/profiling.py``)."""
     from vqvae_tpu_torch.config import TrainConfig
     from vqvae_tpu_torch.data.datasets import load_dataset
     from vqvae_tpu_torch.data.sampler import ReplacementSampler
@@ -468,7 +469,10 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     sv.set_defaults(fn=cmd_serve)
 
-    pf = sub.add_parser("profile", help="a torch.profiler trace of train steps")
+    pf = sub.add_parser("profile", help="a torch.profiler trace of train steps, each a range train_step_<i> "
+                        "holding the update's spans: train.batch, train.forward (search.<route>[NxKxD] "
+                        "in it), train.backward, search.backward, Optimizer.step#<class>.step, and on "
+                        "several ranks parallel.mean and parallel.psum")
     _add_vqvae_flags(pf)
     pf.add_argument("--trace_dir", type=str, default="results/trace")
     pf.add_argument("--profile_steps", type=int, default=10)

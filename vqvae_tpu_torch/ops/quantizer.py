@@ -43,6 +43,7 @@ from vqvae_tpu_torch.config import check_quantizer_impl
 from vqvae_tpu_torch.ops import cuda_quantizer
 from vqvae_tpu_torch.ops.conv import conv_fp32_precision
 from vqvae_tpu_torch.ops.scatter import scatter_add_rows
+from vqvae_tpu_torch.utils.profiling import annotate
 
 
 class QuantizeOutput(NamedTuple):
@@ -278,17 +279,31 @@ def _auto_impl(n: int, k: int, d: int, precision: str, on_card: bool) -> str:
     return "pallas"
 
 
+def _route_name(impl: str, precision: str, d: int) -> str:
+    """The name of the route that serves a search decided as ``impl``
+    ("plain" for a CPU tensor): the kernel's route ("fma" or "mma"),
+    "matmul" for the branch, or "plain"."""
+    if impl == "pallas":
+        return cuda_quantizer.kernel_route(precision, d)
+    return {"jnp": "matmul", "plain": "plain"}[impl]
+
+
 def _search_forward(z_flat, codebook, precision: str, impl: str):
     """The forward's dispatch: on the card "pallas" launches the kernel,
     "jnp" runs the matmul branch and "auto" takes what ``_auto_impl`` says;
-    a CPU tensor takes the plain version under every impl."""
+    a CPU tensor takes the plain version under every impl. The search runs
+    in the span ``search.<route>[<N>x<K>x<D>]`` (``utils/profiling.py``)."""
+    (n, d), k = z_flat.shape, codebook.shape[0]
     if not z_flat.is_cuda:
-        return nearest_code_torch(z_flat, codebook, precision)
-    if impl == "auto":
-        impl = _auto_impl(z_flat.shape[0], codebook.shape[0], codebook.shape[1], precision, True)
-    if impl == "pallas":
-        return cuda_quantizer.nearest_code_cuda(z_flat, codebook, precision)
-    return nearest_code_matmul(z_flat, codebook, precision)
+        impl = "plain"
+    elif impl == "auto":
+        impl = _auto_impl(n, k, d, precision, True)
+    with annotate(lambda: f"search.{_route_name(impl, precision, d)}[{n}x{k}x{d}]"):
+        if impl == "plain":
+            return nearest_code_torch(z_flat, codebook, precision)
+        if impl == "pallas":
+            return cuda_quantizer.nearest_code_cuda(z_flat, codebook, precision)
+        return nearest_code_matmul(z_flat, codebook, precision)
 
 
 class _NearestCode(torch.autograd.Function):
@@ -305,8 +320,9 @@ class _NearestCode(torch.autograd.Function):
         (indices,) = ctx.saved_tensors
         # d(one_hot @ E)/dE: scatter-add of cotangent rows into assigned codes
         # (the JAX segment_sum, quantizer.py:171-179); z gets zero.
-        d_codebook = scatter_add_rows(indices, g_zq.to(ctx.codebook_dtype), ctx.codebook_shape[0])
-        return torch.zeros_like(g_zq), d_codebook, None, None
+        with annotate("search.backward"):
+            d_codebook = scatter_add_rows(indices, g_zq.to(ctx.codebook_dtype), ctx.codebook_shape[0])
+            return torch.zeros_like(g_zq), d_codebook, None, None
 
 
 def nearest_code(

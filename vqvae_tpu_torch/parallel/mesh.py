@@ -34,6 +34,8 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
+from vqvae_tpu_torch.utils.profiling import annotate
+
 
 def mesh_coordinates(rank: int, n_code: int) -> tuple:
     """(data, code) coordinates of ``rank``: the row-major grid of JAX's ``make_2d_mesh``."""
@@ -65,9 +67,11 @@ class Mesh:
 
     def psum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """All-reduce ``t`` in place by sum over ``axis`` ("data", "code" or
-        "world"); returns ``t``. No-op off the distributed path."""
+        "world"); returns ``t``. No-op off the distributed path; on it, in
+        the span ``parallel.psum``."""
         if self.distributed:
-            dist.all_reduce(t, group=self._group(axis))
+            with annotate("parallel.psum"):
+                dist.all_reduce(t, group=self._group(axis))
         return t
 
     def size(self, axis: str) -> int:
@@ -76,12 +80,13 @@ class Mesh:
     def mean_(self, tensors: list, axis: str) -> None:
         """All-reduce ``tensors`` in place by mean over ``axis``, as one flat
         buffer (one collective for any number of them). No-op off the
-        distributed path."""
+        distributed path; on it, in the span ``parallel.mean``."""
         if not self.distributed or not tensors:
             return
-        flat = self.psum(torch.cat([t.reshape(-1) for t in tensors]), axis).div_(self.size(axis))
-        parts = flat.split([t.numel() for t in tensors])
-        torch._foreach_copy_(tensors, [part.view_as(t) for part, t in zip(parts, tensors)])
+        with annotate("parallel.mean"):
+            flat = self.psum(torch.cat([t.reshape(-1) for t in tensors]), axis).div_(self.size(axis))
+            parts = flat.split([t.numel() for t in tensors])
+            torch._foreach_copy_(tensors, [part.view_as(t) for part, t in zip(parts, tensors)])
 
     def gather_code(self, t: torch.Tensor) -> torch.Tensor:
         """All-gather ``t`` over the code group: (n_code, *t.shape), in code order."""

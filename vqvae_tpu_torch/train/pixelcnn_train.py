@@ -68,6 +68,7 @@ from vqvae_tpu_torch.train.checkpoint import (
     load_checkpoint,
 )
 from vqvae_tpu_torch.train.optim import Adam
+from vqvae_tpu_torch.utils.profiling import annotate
 
 # model fields that change the state's tree: a resume must match them
 _TREE_FIELDS = ("input_dim", "dim", "n_layers", "n_classes")
@@ -130,8 +131,10 @@ class PixelCNNTrainer:
         """One update of ``state`` in place on a device batch; the loss as a device scalar."""
         state.optimizer.zero_grad(set_to_none=True)
         with conv_fp32_precision(self.cfg.conv_precision):
-            loss = self._loss(state.model, x, label)
-            loss.backward()
+            with annotate("train.forward"):
+                loss = self._loss(state.model, x, label)
+            with annotate("train.backward"):
+                loss.backward()
         self._reduce_gradients(state.model)
         state.optimizer.step()
         state.step += 1
@@ -160,7 +163,9 @@ class PixelCNNTrainer:
     def step(self, state: PixelCNNState, x, label) -> Tuple[PixelCNNState, torch.Tensor]:
         """One update on codes ``x`` (B, H, W) with class ``label`` (B,), this
         rank's rows of the global batch; the global batch's loss."""
-        return state, self._global(self._update(state, self._to_device(x), self._to_device(label)))
+        with annotate("train.batch"):
+            x, label = self._to_device(x), self._to_device(label)
+        return state, self._global(self._update(state, x, label))
 
     def _run(self, state: PixelCNNState, batches) -> Tuple[PixelCNNState, torch.Tensor]:
         return state, self._global(torch.stack([self._update(state, x, label) for x, label in batches]))
@@ -168,7 +173,9 @@ class PixelCNNTrainer:
     def steps(self, state: PixelCNNState, xs, labels) -> Tuple[PixelCNNState, torch.Tensor]:
         """K = len(xs) updates on stacked batches (K, B, H, W) and labels
         (K, B), staged to the device in one copy each; the (K,) losses."""
-        return self._run(state, zip(self._to_device(xs), self._to_device(labels)))
+        with annotate("train.batch"):
+            xs, labels = self._to_device(xs), self._to_device(labels)
+        return self._run(state, zip(xs, labels))
 
     def stage_dataset(self, train_ds: ArrayDataset, val_ds: ArrayDataset) -> None:
         """Place the (small) code grids and labels on the device once."""
@@ -179,8 +186,12 @@ class PixelCNNTrainer:
         if staged is None:
             raise RuntimeError("call stage_dataset() before steps_by_index() or eval_by_index()")
         data, labels = staged
-        for ii in self._to_device(np.asarray(idx)):
-            yield data.index_select(0, ii), labels.index_select(0, ii)
+        with annotate("train.batch"):
+            idx = self._to_device(np.asarray(idx))
+        for ii in idx:
+            with annotate("train.batch"):
+                batch = data.index_select(0, ii), labels.index_select(0, ii)
+            yield batch
 
     def steps_by_index(self, state: PixelCNNState, idx) -> Tuple[PixelCNNState, torch.Tensor]:
         """K updates whose batches are gathered on the device from the staged

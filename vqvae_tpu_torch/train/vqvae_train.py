@@ -79,6 +79,7 @@ from vqvae_tpu_torch.train.checkpoint import (
 )
 from vqvae_tpu_torch.train.metrics import MetricHistory, MetricLogger, readable_timestamp
 from vqvae_tpu_torch.train.optim import TorchAmsgrad, make_optimizer
+from vqvae_tpu_torch.utils.profiling import annotate
 
 METRIC_NAMES = ("loss", "recon_error", "perplexity")
 # model fields that change the state's tree: a resume must match them
@@ -213,8 +214,10 @@ class VQVAETrainer:
         model, cfg = state.model, self.vq_cfg
         state.optimizer.zero_grad(set_to_none=True)
         with conv_fp32_precision(cfg.conv_precision):
-            loss, recon, q, z_e, _x_hat = self._forward(model, x)
-            loss.backward()
+            with annotate("train.forward"):
+                loss, recon, q, z_e, _x_hat = self._forward(model, x)
+            with annotate("train.backward"):
+                loss.backward()
         self._reduce_gradients(model)
         state.optimizer.step()
         if cfg.ema_codebook:
@@ -284,7 +287,9 @@ class VQVAETrainer:
     def step(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One update on ``batch`` (B, H, W, C), this rank's rows of the global
         batch; metrics are device scalars."""
-        return state, self._global_metrics(self._update(state, self._to_device(batch)))
+        with annotate("train.batch"):
+            x = self._to_device(batch)
+        return state, self._global_metrics(self._update(state, x))
 
     def _run(self, state: TrainState, batches) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         per_step = [self._update(state, x) for x in batches]
@@ -295,7 +300,9 @@ class VQVAETrainer:
         """K = len(batches) updates on stacked batches (K, B, H, W, C), staged
         to the device in one copy (a tensor already there is used as it is).
         Each metric comes back as a (K,) device tensor of per-step values."""
-        return self._run(state, self._to_device(batches))
+        with annotate("train.batch"):
+            xs = self._to_device(batches)
+        return self._run(state, xs)
 
     def stage_dataset(self, data) -> None:
         """Place the training images on the device once."""
@@ -306,8 +313,17 @@ class VQVAETrainer:
         dataset. idx: (K, B) integers, the only data that crosses over."""
         if self._device_data is None:
             raise RuntimeError("call stage_dataset() before steps_by_index()")
-        idx = self._to_device(np.asarray(idx), dtype=torch.int64)
-        return self._run(state, (self._device_data.index_select(0, ii) for ii in idx))
+        return self._run(state, self._gathered(idx))
+
+    def _gathered(self, idx):
+        """The batches of ``steps_by_index``, each gathered when its update
+        asks for it."""
+        with annotate("train.batch"):
+            idx = self._to_device(np.asarray(idx), dtype=torch.int64)
+        for ii in idx:
+            with annotate("train.batch"):
+                x = self._device_data.index_select(0, ii)
+            yield x
 
     @torch.no_grad()
     def eval_batch(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:

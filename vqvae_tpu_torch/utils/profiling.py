@@ -1,26 +1,34 @@
-"""Tracing and timing (port of ``vqvae_tpu/utils/profiling.py``).
+"""Tracing (port of ``vqvae_tpu/utils/profiling.py``).
 
 - ``profile_trace``: a context manager around ``torch.profiler`` (host and,
   where there is a card, CUDA activity) that writes one
   ``<host>_<pid>.<ms>.pt.trace.json`` into ``log_dir`` when it exits: a
   Chrome trace that Perfetto and TensorBoard's profiler plugin open.
-- ``annotate``: a named range that shows up in the trace
-  (``record_function``), optionally also as an NVTX range.
-- ``step_timer``: wall-clock timing fenced by a copy of every tensor of the
-  result to the host. ``torch.cuda.synchronize()`` would fence the device
-  but says nothing of a tree of results on several devices or streams; a
-  copy of each leaf cannot return before that leaf is written.
+- ``annotate``: the port's one span. Under a running profiler it is a
+  ``record_function`` range, a profiler event on the clock of the device's
+  own activity, so that a trace can put each device operation and each idle
+  gap down to the spans around it. With no profiler running it costs one
+  check: no range is made and no name is formatted. The profiler keeps the
+  events and writes them when it stops; there is no store of our own.
+
+The spans of the training update (each opened by the caller's thread, but
+``search.backward``, which autograd runs on its own thread on a card):
+``train.batch`` (the batch's way to the device), ``train.forward`` (forward
+and loss), ``search.<route>[<N>x<K>x<D>]`` (the nearest-code search,
+``ops/quantizer.py``), ``train.backward`` (around ``loss.backward()``),
+``search.backward``, and on several ranks ``parallel.mean`` (the gradients'
+exchange) and ``parallel.psum`` (every all-reduce).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Iterator, Optional
+from typing import Callable, ContextManager, Iterator, Union
 
 import torch
-from torch.utils._pytree import tree_map
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -38,42 +46,13 @@ def profile_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
         yield prof
 
 
-@contextlib.contextmanager
-def annotate(name: str, nvtx: bool = False) -> Iterator[None]:
-    """A named range in the profiler's trace; with ``nvtx`` also an NVTX
-    range for tools that read those (on a card only)."""
-    nvtx = nvtx and torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+def annotate(name: Union[str, Callable[[], str]]) -> ContextManager:
+    """A named range in the profiler's trace while a profiler runs, else a
+    shared no-op. ``name`` may be a callable that builds the name; it is
+    called only while a profiler runs."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name() if callable(name) else name)
 
 
-class step_timer:
-    """Wall-clock timer with a fence::
-
-        with step_timer() as t:
-            out = step(...)
-            t.fence(out)
-        print(t.seconds)
-    """
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        self.seconds: Optional[float] = None
-        return self
-
-    def fence(self, tree) -> None:
-        """Copy every tensor leaf of ``tree`` to the host."""
-        tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, tree)
-
-    def __exit__(self, *exc):
-        self.seconds = time.perf_counter() - self._t0
-        return False
-
-
-__all__ = ["annotate", "profile_trace", "step_timer"]
+__all__ = ["annotate", "profile_trace"]
