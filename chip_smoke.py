@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written nearest-code kernels from ``vqvae_tpu_torch/csrc``
-(the tensor-core kernel, route "mma", and the CUDA-core kernel, route "fma")
-and drives the port's main path at full width, in phases; any failed phase
+Builds the hand-written kernels from ``vqvae_tpu_torch/csrc`` (the
+nearest-code kernels: tensor-core, route "mma", and CUDA-core, route "fma";
+and the fp32 weight-gradient kernel of the training convolutions) and drives the port's main path at full width, in phases; any failed phase
 stops the script with a non-zero exit and no result line. Every search of a
 main path runs under ``quantizer_impl="auto"``, and each phase's count of
 kernel launches is the one ``ops/quantizer.py::_auto_impl`` predicts for its
@@ -53,14 +53,17 @@ more launch the kernels; the fp32 searches at 2,048 rows take the branch.
    ``load_model`` and feed ``extract_latents``. One step's gradients on the
    card are held against the port on the CPU (same weights, a batch of 32;
    largest error relative to the parameter's largest gradient at most 1e-4,
-   which TF32 in a backward conv would break);
+   which TF32 in a backward conv would break); every weight gradient of the
+   60 updates comes from the hand-written kernel (``ops/conv_wgrad.py``, 15
+   launches an update) and none is left to cuDNN;
 8. training in bf16 / "default" (20 updates, 20 launches of the "mma" kernel)
    and with an EMA codebook in fp32 (20 updates, 20 "fma" launches; the EMA
    counts must sum to 16,384 * (1 - 0.99^20) and the codebook equal
    means / smoothed counts); the same 5 updates run twice from one state, in
    fp32 ("fma"), bf16 ("mma"), with the EMA codebook and in fp32 at batch 32
    (2,048 rows: the matmul branch under "auto"), must give the same train
-   state and metrics, 0 difference;
+   state and metrics, 0 difference; the fp32 runs take every weight gradient
+   from the hand-written kernel, bf16 none;
 9. times of a train step (batch 32 and 256 in fp32, 256 in bf16), of the
    optimizer update, the scatter-add backward alone (``index_add_``, as it
    was, beside ``scatter_add_rows``, as it is) and the EMA update alone, and a
@@ -92,7 +95,8 @@ more launch the kernels; the fp32 searches at 2,048 rows take the branch.
    through ``load_prior`` and ``sample``; one epoch in bf16/"default" with
    finite losses; one step's gradients on the card against the CPU (largest
    error relative to each parameter's largest gradient at most 1e-4); the
-   same 5 updates twice at batch 32 and 256, 0 difference; and for the record a step's ms, grids/s, host
+   same 5 updates twice at batch 32 and 256, 0 difference, each weight
+   gradient from the hand-written kernel (62 launches an update); and for the record a step's ms, grids/s, host
    queueing, share of the peak (``utils/flops.py``) and peak memory at batch
    32 and 256 in fp32 and bf16, and a ``torch.profiler`` breakdown of 20
    steps at batch 256. It launches neither nearest-code kernel.
@@ -177,6 +181,17 @@ more launch the kernels; the fp32 searches at 2,048 rows take the branch.
    as the kernel's but for near-ties); and ``nearest_code`` under "auto"
    against "pallas" in turns.
 
+20. (run right after phase 19) the weight-gradient kernel
+   (``vqvae_tpu_torch/bench/conv_wgrad.py``): at each training convolution
+   of both models at its cells' batches (the VQ-VAE's nine at 256 and 512,
+   the prior's eight at 1,024), the kernel against the plain version in
+   float64 within 2**-24 * (k_slice + S + 2) * the sum of |a| |b| over each
+   element's terms, and bit for bit on a repeat and on a third call while a
+   second stream keeps the card busy; then the kernel's, the plain
+   version's and cuDNN's deterministic weight gradient's times (the
+   ``library_ms``, which the port no longer calls) and their bound, and
+   their sums an update.
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result.
@@ -209,6 +224,10 @@ R5 = os.path.join(ROOT, "artifacts", "e2e_r5", "vqvae_e2e_r5_step4999.npz")
 PRIOR_R5 = os.path.join(ROOT, "artifacts", "e2e_r5", "latent_block_pixelcnn.npz")
 SAMPLES_R5 = os.path.join(ROOT, "artifacts", "e2e_r5", "samples.npz")
 PRIOR_SEED = 1234                     # the draws of phase 10
+# phases 7, 8 and 13: the training convolutions of an update, each of whose
+# weight gradients is one launch of the hand-written kernel (ops/conv_wgrad.py)
+VQVAE_CONVS_AN_UPDATE = 15
+PRIOR_CONVS_AN_UPDATE = 62
 REQUEST_SIZES = (1, 10, 64, 100)      # phase 12: one client thread each, 3 requests
 MODES = ("highest", "high", "default")
 MAIN_SHAPE = (16_384, 512, 64)        # extraction: batch 256 x 8 x 8 latents
@@ -223,7 +242,7 @@ RAGGED_K_SHAPE = (4096, 301, 64)      # K no multiple of 8, inside the "mma" env
 FMA_EDGE_SHAPES = ((1000, 300, 45), (1000, 300, 452), (37, 512, 64))
 # device items of a profile by the first group whose key their name holds
 DEVICE_ITEM_GROUPS = (
-    ("hand-written kernels", ("nearest_code",)),
+    ("hand-written kernels", ("nearest_code", "conv_wgrad")),
     ("copies", ("Memcpy", "Memset")),
     ("cuDNN layout conversions", ("nhwcToNchw", "nchwToNhwc")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
@@ -609,7 +628,7 @@ def prior_training_phase(smi: str, codes: np.ndarray) -> dict:
     from vqvae_tpu_torch import cli
     from vqvae_tpu_torch.config import PixelCNNConfig, TrainConfig
     from vqvae_tpu_torch.data.datasets import load_dataset
-    from vqvae_tpu_torch.ops import cuda_quantizer
+    from vqvae_tpu_torch.ops import conv_wgrad, cuda_quantizer
     from vqvae_tpu_torch.pipelines.viz import load_prior
     from vqvae_tpu_torch.train import pixelcnn_train
     from vqvae_tpu_torch.train.checkpoint import peek_hyperparameters
@@ -727,9 +746,14 @@ def prior_training_phase(smi: str, codes: np.ndarray) -> dict:
     # -- the same 5 updates twice from the same state: 0 difference -------------
     trainer = PixelCNNTrainer(cfg, TrainConfig(), device=DEVICE)
     trainer.stage_dataset(train_ds, val_ds)
-    rows["repeat"] = {}
+    rows["repeat"], rows["wgrad_launches"] = {}, 0
     for batch in (32, 256):  # 256: the embedding's backward sums 16,384 rows
+        conv_wgrad.reset_counts()
         diff, dloss = same_updates_twice(trainer, np.arange(5 * batch).reshape(5, batch))
+        check((conv_wgrad.launches, conv_wgrad.fallbacks) == (10 * PRIOR_CONVS_AN_UPDATE, 0),
+              f"the prior's repeats at batch {batch}: weight-gradient launches {conv_wgrad.launches}, "
+              f"fallbacks {conv_wgrad.fallbacks}, expected {10 * PRIOR_CONVS_AN_UPDATE} and 0")
+        rows["wgrad_launches"] += conv_wgrad.launches
         rows["repeat"][batch] = [diff, dloss]
         print(f"[13] the same 5 updates twice from the same state (batch {batch}): largest difference of any "
               f"train-state leaf (weights, Adam moments) {diff:.3g}, of any loss {dloss:.3g}")
@@ -813,7 +837,8 @@ def previous_arithmetic():
     """The train steps as they were before they repeated bit for bit, for the
     record: ``index_add_`` for the scatter-adds, ``F.embedding``'s backward
     for the prior's embedding, cuDNN's default algorithms inside the
-    precision scope."""
+    precision scope, the weight gradients among them (no hand-written
+    kernel), and the VQ-VAE's update eager (no graph)."""
     import torch.nn.functional as F
 
     from vqvae_tpu_torch.models import pixelcnn
@@ -835,6 +860,8 @@ def previous_arithmetic():
     patches = [(m, "conv_fp32_precision", scope) for m in (conv, vqvae_train, pixelcnn_train)]
     patches += [(m, "scatter_add_rows", index_add) for m in (quantizer, code_parallel, vqvae_train)]
     patches.append((pixelcnn, "gather_rows", lambda table, idx: F.embedding(idx, table)))
+    patches.append((conv, "wgrad_route", lambda *call: "cudnn"))
+    patches.append((vqvae_train.VQVAETrainer, "_update", vqvae_train.VQVAETrainer._eager_update))
     saved = [(m, name, getattr(m, name)) for m, name, _new in patches]
     for m, name, new in patches:
         setattr(m, name, new)
@@ -1642,6 +1669,31 @@ def auto_dispatch_phase(smi: str) -> dict:
     return {"rows": rows}
 
 
+def conv_wgrad_phase(smi: str) -> dict:
+    """Phase 20: the weight-gradient kernel (``csrc/conv_wgrad.cu``) at every
+    training convolution of both models at the batches of their cells
+    (``bench/conv_wgrad.py``: the VQ-VAE's nine at 256 and 512, the prior's
+    eight at 1,024): each within the float64 bound of the plain version and
+    bit for bit on a repeat and on a third call while a second stream keeps
+    the card busy; then the kernel, the plain version and cuDNN's
+    deterministic weight gradient timed, and summed an update. Returns the
+    rows."""
+    from vqvae_tpu_torch.bench import conv_wgrad as bench_wgrad
+
+    checked = bench_wgrad.check()
+    for row in checked:
+        print(f"[20] {json.dumps(row)}")
+    bad = [f"{r['conv']}@{r['batch']}" for r in checked if not r["ok"]]
+    check(not bad, f"the weight-gradient kernel fails its check at {bad}")
+    timed = bench_wgrad.times()
+    for row in timed:
+        print(f"[20] {json.dumps(row)}")
+    print(f"[20] card: {smi}; {len(checked)} convolutions within the float64 bound and bit for bit, "
+          f"largest error / bound {max(r['max_ratio'] for r in checked):.3g}; times from CUDA events behind "
+          f"a device spin")
+    return {"check": checked, "times": timed}
+
+
 def parity_phase(smi: str) -> dict:
     """Phase 17: the fleets' ``run`` (fp32 and bf16, each search where
     ``_auto_impl`` sends it at 2,048 rows) for ``PARITY_STEPS`` updates each
@@ -1946,7 +1998,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from vqvae_tpu_torch.config import TrainConfig, VQVAEConfig
     from vqvae_tpu_torch.data.datasets import load_dataset
-    from vqvae_tpu_torch.ops import cuda_quantizer
+    from vqvae_tpu_torch.ops import conv_wgrad, cuda_quantizer
     from vqvae_tpu_torch.ops.quantizer import (
         _auto_impl,
         code_scores,
@@ -2160,6 +2212,9 @@ def main() -> int:
     t_auto = time.perf_counter()
     auto_dispatch_phase(smi)
     print(f"[19] phase 19 took {time.perf_counter() - t_auto:.1f} s")
+    t_wgrad = time.perf_counter()
+    wgrad_rows = conv_wgrad_phase(smi)
+    print(f"[20] phase 20 took {time.perf_counter() - t_wgrad:.1f} s")
 
     # -- phase 6: where the extraction time goes ------------------------------
     profile_device("6", "extract_latents over 2560 images",
@@ -2172,11 +2227,17 @@ def main() -> int:
     cfg7 = TrainConfig(batch_size=TRAIN_BATCH, n_updates=60, log_interval=20, steps_per_dispatch=10,
                        save=True, filename="smoke_fp32", results_dir=results)
     cuda_quantizer.reset_launch_counts()
+    conv_wgrad.reset_counts()
     t0 = time.perf_counter()
     state7, history7, trainer7 = train_vqvae(VQVAEConfig(), cfg7, dataset=dataset, device=DEVICE)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches_fp32 = dict(cuda_quantizer.launches_by_route)
+    wgrad7 = (conv_wgrad.launches, conv_wgrad.fallbacks)
+    print(f"[7] weight-gradient kernel: {wgrad7[0]} launches ({VQVAE_CONVS_AN_UPDATE} an update), "
+          f"{wgrad7[1]} fp32 weight gradients left to cuDNN")
+    check(wgrad7 == (60 * VQVAE_CONVS_AN_UPDATE, 0), f"expected {60 * VQVAE_CONVS_AN_UPDATE} weight-gradient "
+          f"launches and no fallback, got {wgrad7}")
     first = float(np.mean(history7.recon_errors[:10]))
     last = float(np.mean(history7.recon_errors[-10:]))
     print(f"[7] train_vqvae fp32/highest: 60 updates at batch {TRAIN_BATCH} in {dt:.3f} s (host clock, first "
@@ -2250,15 +2311,22 @@ def main() -> int:
 
     # the same 5 updates twice from the same state: bit for bit
     idx5 = np.stack([np.arange(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH) for i in range(5)])
+    conv_wgrad.reset_counts()
     repeats = {"fp32/highest (fma)": same_updates_twice(trainer7, idx5)}
+    check((conv_wgrad.launches, conv_wgrad.fallbacks) == (10 * VQVAE_CONVS_AN_UPDATE, 0),
+          "the fp32 repeats did not take every weight gradient from the kernel")
+    wgrad_launches = {"7": wgrad7[0] + conv_wgrad.launches}
 
     # -- phase 8: training in bf16 / default (route mma) and with an EMA codebook ---
     cfg8 = TrainConfig(batch_size=TRAIN_BATCH, n_updates=20, log_interval=20, steps_per_dispatch=10)
     vq_bf16 = VQVAEConfig(compute_dtype="bfloat16", quantizer_precision="default")
     cuda_quantizer.reset_launch_counts()
+    conv_wgrad.reset_counts()
     state8, history8, _t8 = train_vqvae(vq_bf16, cfg8, dataset=dataset, device=DEVICE)
     torch.cuda.synchronize()
     launches_bf16 = dict(cuda_quantizer.launches_by_route)
+    check((conv_wgrad.launches, conv_wgrad.fallbacks) == (0, 0),
+          "bf16 training reached the fp32 weight-gradient kernel")
     print(f"[8] train_vqvae bf16/default: 20 updates at batch {TRAIN_BATCH}, kernel launches {launches_bf16}; "
           f"recon_error {history8.recon_errors[0]:.6f} -> {history8.recon_errors[-1]:.6f}, "
           f"loss {history8.loss_vals[0]:.6f} -> {history8.loss_vals[-1]:.6f}")
@@ -2271,9 +2339,13 @@ def main() -> int:
 
     vq_ema = VQVAEConfig(ema_codebook=True)
     cuda_quantizer.reset_launch_counts()
+    conv_wgrad.reset_counts()
     state_e, history_e, _te = train_vqvae(vq_ema, cfg8, dataset=dataset, device=DEVICE)
     torch.cuda.synchronize()
     launches_ema = dict(cuda_quantizer.launches_by_route)
+    check((conv_wgrad.launches, conv_wgrad.fallbacks) == (20 * VQVAE_CONVS_AN_UPDATE, 0),
+          f"EMA training: weight-gradient launches {conv_wgrad.launches}, fallbacks {conv_wgrad.fallbacks}")
+    wgrad_ema = conv_wgrad.launches
     counts_sum = float(state_e.ema_counts.sum())
     want_sum = 64 * TRAIN_BATCH * (1.0 - vq_ema.ema_decay ** 20)
     n_tot = state_e.ema_counts.sum()
@@ -2291,7 +2363,9 @@ def main() -> int:
     check(cb_err <= 1e-5, "the EMA codebook is not means / smoothed counts")
     check(all(not bool(state_e.optimizer.state[state_e.model.codebook][m].any())
               for m in ("mu", "nu", "nu_max")), "the EMA codebook has optimizer moments")
+    conv_wgrad.reset_counts()
     repeats["bf16/default (mma)"] = same_updates_twice(_t8, idx5)
+    check(conv_wgrad.launches == 0, "the bf16 repeats reached the fp32 weight-gradient kernel")
     repeats["EMA, fp32/highest (fma)"] = same_updates_twice(_te, idx5)
     # batch 32: the fp32 search of 2,048 rows, where "auto" takes the matmul branch
     trainer32 = VQVAETrainer(VQVAEConfig(), TrainConfig(batch_size=32), x_train_var, device=DEVICE)
@@ -2299,9 +2373,15 @@ def main() -> int:
     route32 = "matmul branch" if _auto_impl(64 * 32, 512, 64, "highest", True) == "jnp" else "fma"
     repeats[f"fp32/highest at batch 32 ({route32})"] = same_updates_twice(
         trainer32, np.arange(5 * 32).reshape(5, 32))
+    check((conv_wgrad.launches, conv_wgrad.fallbacks) == (20 * VQVAE_CONVS_AN_UPDATE, 0),
+          f"the EMA and batch-32 repeats: weight-gradient launches {conv_wgrad.launches}, fallbacks "
+          f"{conv_wgrad.fallbacks}, expected {20 * VQVAE_CONVS_AN_UPDATE} and 0")
+    wgrad_launches["8"] = wgrad_ema + conv_wgrad.launches
     for name, (diff, dmetric) in repeats.items():
         print(f"[8] the same 5 updates twice from the same state, {name} (batch {TRAIN_BATCH} unless named): largest "
               f"difference of any train-state leaf {diff:.3g}, of any metric {dmetric:.3g}")
+    print("[8] the fp32 repeats (fp32/highest, EMA, batch 32) take every weight gradient from the "
+          "hand-written kernel (ops/conv_wgrad.py); bf16 keeps cuDNN's")
     check(all(d == 0 and m == 0 for d, m in repeats.values()),
           f"two runs of the same 5 updates part: {repeats}")
 
@@ -2451,6 +2531,17 @@ def main() -> int:
               + rest_launches("fma") + bench_launches("fma") + parity_launches("fma")
               + pipeline_launches("fma")),
     ]
+    # the weight-gradient kernel over a VQ-VAE update at batch 256 (phase 20's
+    # sums); its launches: phases 7, 8 and 13, each counted from zero
+    update = next(r for r in wgrad_rows["times"] if r.get("update") == f"vqvae@{TRAIN_BATCH}")
+    kernels.append({
+        "name": "conv_wgrad", "route": "cuda", "source": "vqvae_tpu_torch/csrc/conv_wgrad.cu",
+        "replaces": "cuDNN's deterministic weight gradient (XLA's in vqvae_tpu/ops/conv.py)",
+        "launches": wgrad_launches["7"] + wgrad_launches["8"] + train_rows["wgrad_launches"],
+        "max_abs_err": max(r["max_err"] for r in wgrad_rows["check"] if r["conv"].startswith("vqvae.")
+                           and r["batch"] == TRAIN_BATCH),
+        "ms": update["kernel_ms"], "plain_ms": update["plain_ms"], "bound_ms": update["bound_ms"],
+        "bound_by": "the sum of the convolutions' bounds", "library_ms": update["library_ms"]})
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path was never launched")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

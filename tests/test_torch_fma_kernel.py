@@ -101,14 +101,15 @@ def test_fma_route_takes_every_depth(precision, d):
 
 def test_library_interface_has_no_depth_query():
     """The depth envelope is reckoned in Python; the library exports the two
-    searches, the empty kernel and the error string."""
+    searches, the empty kernel, the error string and (since the weight-gradient
+    kernel joined the library) ``vq_conv_wgrad``."""
     exported = set()
     for path in cuda_quantizer.sources():
         text = path.read_text()
         extern_c = text[text.index('extern "C"'):]
         exported |= set(re.findall(r"^\w[\w\s\*]*?\b(vq_\w+)\(", extern_c, flags=re.M))
     assert exported == {"vq_nearest_code", "vq_nearest_code_mma", "vq_empty_kernel",
-                        "vq_error_string"}
+                        "vq_error_string", "vq_conv_wgrad"}
 
 
 def test_sweep_ablations_apply_to_the_shipped_source(tmp_path, monkeypatch):

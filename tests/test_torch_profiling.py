@@ -77,7 +77,9 @@ def test_profile_command_on_the_card(tmp_path):
     """On a card the trace holds the steps and the search kernel, one launch
     a step and one for the warm-up step outside the trace. The kernel is
     asked for: under "auto" the fp32 search at batch 32 (2,048 rows) takes
-    the matmul branch (``ops/quantizer.py::_auto_impl``)."""
+    the matmul branch (``ops/quantizer.py::_auto_impl``). The traced steps
+    replay the update's graph, captured after the warm-up step, so the
+    search opens no span of its own there."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     from vqvae_tpu_torch.ops import cuda_quantizer
@@ -89,7 +91,7 @@ def test_profile_command_on_the_card(tmp_path):
     names = _trace_names(trace)
     assert {f"train_step_{i}" for i in range(4)} <= names
     assert any("nearest_code" in n for n in names)
-    assert "search.fma[2048x512x64]" in names
+    assert any(n.startswith("cudaGraphLaunch") for n in names)
     assert cuda_quantizer.launches_by_route == {"mma": 0, "fma": 5}
 
 
@@ -194,14 +196,16 @@ def test_mesh_spans_on_the_distributed_path(monkeypatch):
 
 @pytest.mark.gpu
 def test_search_backward_runs_on_autograd_thread_on_the_card(tmp_path):
-    """On a card the search's backward (the one-hot DGEMM) is launched under
-    ``search.backward`` from autograd's device thread, not the caller's;
-    at batch 256 the forward's route is the ``fma`` kernel at 16,384 rows."""
+    """On a card the search's backward (the one-hot DGEMM) of an eager update
+    is launched under ``search.backward`` from autograd's device thread, not
+    the caller's; at batch 256 the forward's route is the ``fma`` kernel at
+    16,384 rows."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     from yardstick.trace import WINDOW_SPAN, view_from_events
 
     trainer = VQVAETrainer(VQVAEConfig(), TrainConfig(batch_size=256), device="cuda")
+    trainer._update = trainer._eager_update      # a replayed update opens no span inside the graph
     state = trainer.init_state()
     trainer.stage_dataset(np.random.default_rng(0).random((512, 32, 32, 3), dtype=np.float32))
     idx = np.arange(512).reshape(2, 256)

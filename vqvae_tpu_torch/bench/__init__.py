@@ -27,7 +27,8 @@ only) and, but for the search bench, which times kernels, ``--device``:
 - ``parity``: the 5,000-update convergence fleets and their verdicts;
 - ``e2e``: the reference's whole pipeline at its own scale, and its report;
 - ``scaling``: weak scaling of encode + quantize over ranks;
-- ``conv_strategy``: the space-to-depth lowering of the k4/s2 convs.
+- ``conv_strategy``: the space-to-depth lowering of the k4/s2 convs;
+- ``conv_wgrad``: the weight-gradient kernel at the training convolutions.
 """
 
 from __future__ import annotations

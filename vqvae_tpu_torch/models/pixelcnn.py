@@ -102,10 +102,10 @@ class GatedMaskedConv2d(nn.Module):
         h_cls = self.class_cond_embedding[label].to(x_v.dtype)[:, :, None, None]
         hgt, wid = x_v.shape[2], x_h.shape[3]
         h_vert = conv2d(x_v, w_vert, self.vert_stack_b, padding=(k // 2, k // 2),
-                        precision=p)[:, :, :hgt]
+                        precision=p, keep=(hgt, None))
         out_v = gate(h_vert + h_cls)
         h_horiz = conv2d(x_h, w_horiz, self.horiz_stack_b, padding=(0, k // 2),
-                         precision=p)[:, :, :, :wid]
+                         precision=p, keep=(None, wid))
         v2h = conv2d(h_vert, self.vert_to_horiz_w, self.vert_to_horiz_b, precision=p)
         out = gate(v2h + h_horiz + h_cls)
         out_h = conv2d(out, self.horiz_resid_w, self.horiz_resid_b, precision=p)

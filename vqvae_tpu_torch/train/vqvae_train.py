@@ -25,6 +25,13 @@ runs the backward convolutions when ``backward()`` is called, and cuDNN reads
 the TF32 switch then, so a scope around the forward alone would leave the
 gradients of a "highest" run in TF32.
 
+On a card (off the sharded search) the forward and the backward of an update
+are one CUDA graph (``_UpdateGraph``), captured after the first (eager)
+update of a batch shape and replayed by every update after it: the same
+kernels in the same order, launched by one call instead of some three
+hundred from Python, so the card, not the host, sets the pace. The gradient
+all-reduce, the optimizer step and the EMA update stay outside it.
+
 A run repeats bit for bit on the card as on the CPU (the JAX package's
 contract, "same seed => bit-identical step"): the codebook gradient and the
 EMA sums add without atomics (``scatter_add_rows``), and the precision scope
@@ -62,6 +69,7 @@ from vqvae_tpu_torch.data.datasets import load_dataset
 from vqvae_tpu_torch.data.sampler import ReplacementSampler
 from vqvae_tpu_torch.device import resolve_device
 from vqvae_tpu_torch.models.vqvae import VQVAE
+from vqvae_tpu_torch.ops import conv_wgrad, cuda_quantizer
 from vqvae_tpu_torch.ops.conv import conv_fp32_precision
 from vqvae_tpu_torch.ops.quantizer import nearest_code, quantize
 from vqvae_tpu_torch.ops.scatter import scatter_add_rows
@@ -131,6 +139,7 @@ class VQVAETrainer:
         self._search = (partial(nearest_code_sharded, mesh=self.mesh) if self.sharded
                         else partial(nearest_code, impl=vq_cfg.quantizer_impl))
         self._device_data: Optional[torch.Tensor] = None
+        self._graph: Optional[_UpdateGraph] = None
 
     # -- state ---------------------------------------------------------------
 
@@ -210,7 +219,13 @@ class VQVAETrainer:
         return recon + q.loss, recon, q, z_e, x_hat
 
     def _update(self, state: TrainState, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """One update of ``state`` in place on a device batch; device scalars out."""
+        """One update of ``state`` in place on a device batch; device scalars
+        out. On a card, off the sharded search, through the update's graph."""
+        if x.device.type == "cuda" and not self.sharded:
+            return self._graphed_update(state, x)
+        return self._eager_update(state, x)
+
+    def _eager_update(self, state: TrainState, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         model, cfg = state.model, self.vq_cfg
         state.optimizer.zero_grad(set_to_none=True)
         with conv_fp32_precision(cfg.conv_precision):
@@ -225,6 +240,32 @@ class VQVAETrainer:
         state.step += 1
         return {"loss": loss.detach(), "recon_error": recon.detach(),
                 "perplexity": q.perplexity.detach()}
+
+    def _graphed_update(self, state: TrainState, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``_update`` with its forward and backward replayed from the graph.
+        Where there is none, or it does not fit (another batch shape, model
+        or optimizer, or a gradient's tensor that is not the graph's), this
+        update runs eager on the stream the capture will use, which sets up
+        the libraries' handles, plans and workspaces there, and the graph is
+        captured for the next."""
+        graph = self._graph
+        if graph is None or not graph.fits(state, x):
+            self._graph = None                  # the old graph's memory goes first
+            side = torch.cuda.Stream(x.device)
+            side.wait_stream(torch.cuda.current_stream(x.device))
+            with torch.cuda.stream(side):
+                metrics = self._eager_update(state, x)
+            torch.cuda.current_stream(x.device).wait_stream(side)
+            self._graph = _UpdateGraph(self, state, x, side)
+            return metrics
+        loss, recon, q, z_e = graph.replay(x)
+        self._reduce_gradients(state.model)
+        state.optimizer.step()
+        if self.vq_cfg.ema_codebook:
+            self._ema_update(state, z_e, q)
+        state.step += 1
+        # the next replay writes over the graph's outputs: one copy keeps them
+        return dict(zip(METRIC_NAMES, torch.stack([loss, recon, q.perplexity]).unbind()))
 
     @torch.no_grad()
     def _reduce_gradients(self, model: VQVAE) -> None:
@@ -331,6 +372,66 @@ class VQVAETrainer:
         with conv_fp32_precision(self.vq_cfg.conv_precision):
             loss, recon, q, _z_e, x_hat = self._forward(state.model, x)
         return {"loss": loss, "recon_error": recon, "perplexity": q.perplexity, "x_hat": x_hat}
+
+
+def _kernel_launches() -> tuple:
+    return conv_wgrad.launches, cuda_quantizer.launches, dict(cuda_quantizer.launches_by_route)
+
+
+def _add_kernel_launches(counts: tuple, sign: int = 1) -> None:
+    wgrad, search, by_route = counts
+    conv_wgrad.launches += sign * wgrad
+    cuda_quantizer.launches += sign * search
+    for route, n in by_route.items():
+        cuda_quantizer.launches_by_route[route] += sign * n
+
+
+class _UpdateGraph:
+    """The forward and backward of one update on a card, captured once as a
+    CUDA graph and replayed for every later update of the same batch shape.
+
+    The capture records the forward, the loss and ``backward()`` under the
+    configuration's precision scope, on the stream where an eager update
+    has just run (``VQVAETrainer._graphed_update``). The gradients are set
+    to None first, so each parameter's ``.grad`` becomes a tensor of the
+    graph that every replay writes afresh (nothing accumulates). The batch
+    is copied into the graph's input before a replay. The hand-written
+    kernels' launch counters count what a replay launches, not what the
+    capture recorded."""
+
+    def __init__(self, trainer: VQVAETrainer, state: TrainState, x: torch.Tensor,
+                 stream: torch.cuda.Stream):
+        model, precision = state.model, trainer.vq_cfg.conv_precision
+        self.model, self.optimizer = model, state.optimizer
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        self.x = x.detach().clone()
+        state.optimizer.zero_grad(set_to_none=True)
+        before = _kernel_launches()
+        self.graph = torch.cuda.CUDAGraph()
+        with conv_fp32_precision(precision), torch.cuda.graph(
+                self.graph, stream=stream, capture_error_mode="thread_local"):
+            loss, recon, q, z_e, _x_hat = trainer._forward(model, self.x)
+            loss.backward()
+        after = _kernel_launches()
+        self.launches = (after[0] - before[0], after[1] - before[1],
+                         {r: n - before[2][r] for r, n in after[2].items()})
+        _add_kernel_launches(self.launches, -1)
+        # detached, so that nothing keeps the captured autograd graph alive
+        self.outputs = (loss.detach(), recon.detach(), type(q)(*(t.detach() for t in q)), z_e.detach())
+        self.grads = [p.grad for p in self.params]
+
+    def fits(self, state: TrainState, x: torch.Tensor) -> bool:
+        return (state.model is self.model and state.optimizer is self.optimizer
+                and x.shape == self.x.shape and x.dtype == self.x.dtype and x.device == self.x.device
+                and all(p.grad is g for p, g in zip(self.params, self.grads)))
+
+    def replay(self, x: torch.Tensor):
+        """(loss, recon, quantizer result, z_e) of the update on ``x``, the
+        graph's own tensors; each parameter's ``.grad`` holds its gradient."""
+        self.x.copy_(x)
+        self.graph.replay()
+        _add_kernel_launches(self.launches)
+        return self.outputs
 
 
 def _parent(tree: dict, path: tuple) -> dict:

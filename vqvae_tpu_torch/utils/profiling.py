@@ -17,7 +17,9 @@ The spans of the training update (each opened by the caller's thread, but
 and loss), ``search.<route>[<N>x<K>x<D>]`` (the nearest-code search,
 ``ops/quantizer.py``), ``train.backward`` (around ``loss.backward()``),
 ``search.backward``, and on several ranks ``parallel.mean`` (the gradients'
-exchange) and ``parallel.psum`` (every all-reduce).
+exchange) and ``parallel.psum`` (every all-reduce). A VQ-VAE update on a card
+opens the spans inside the update only in the first, eager update of a batch
+shape: the later ones replay its CUDA graph, which holds no span.
 """
 
 from __future__ import annotations
