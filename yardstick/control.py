@@ -13,6 +13,8 @@
 - faults (training): the reference in the program's place with a fault
   planted (``drivers/train.py::FAULTS``).
 
+Each reading is the driver's own (``program_numbers``, ``control_numbers``).
+
 One JSON object: per seed the numbers, and per number the largest program
 reading (the lower reading) and the least control and fault readings.
 """
@@ -30,26 +32,16 @@ import torch
 
 from yardstick import run
 from yardstick import spec as specs
-from yardstick.drivers import DRIVERS
-
-
-def _program_numbers(cell):
-    if hasattr(cell, "passes"):
-        cell.unit()
-        cell.release()
-        return cell.numbers()[0]
-    cell.release()
-    return cell.numbers()
 
 
 def program_readings(cell_spec, seeds, device, rank=0, mesh_cfg=None):
     out = []
     for seed in seeds:
         t0 = time.perf_counter()
-        cell = DRIVERS[cell_spec.traffic["driver"]](cell_spec, seed, device, rank, mesh_cfg)
+        cell = cell_spec.driver()(cell_spec, seed, device, rank, mesh_cfg)
         cell.setup()
         if rank == 0:
-            out.append({"seed": seed, **_program_numbers(cell),
+            out.append({"seed": seed, **cell.program_numbers(),
                         "seconds": time.perf_counter() - t0})
         else:
             cell.release()
@@ -96,15 +88,8 @@ def control_readings(cell_spec, seeds, device, fault=None):
     out = []
     for seed in seeds:
         t0 = time.perf_counter()
-        cell = DRIVERS[cell_spec.traffic["driver"]](cell_spec, seed, device)
-        cell.make_inputs()
-        if hasattr(cell, "passes"):
-            numbers = cell.numbers(passes=[cell.reference_codes("tf32")])[0]
-        else:
-            side = cell.reference("ieee" if fault else "tf32", fault)
-            numbers = cell.numbers(program_side=side)
+        numbers = cell_spec.driver()(cell_spec, seed, device).control_numbers(fault)
         out.append({"seed": seed, **numbers, "seconds": time.perf_counter() - t0})
-        del cell
     return out
 
 
@@ -141,8 +126,8 @@ def main(argv=None) -> int:
                     v if math.isfinite(v) else math.inf for v in vals)
         summary[key] = row
     report["summary"] = summary
-    if cell_spec.traffic["driver"] == "train" and args.control_seeds:
-        cell = DRIVERS["train"](cell_spec, args.control_seeds[0], device)
+    cell = cell_spec.driver()(cell_spec, args.control_seeds[0], device) if args.control_seeds else None
+    if hasattr(cell, "left_out"):
         cell.make_inputs()
         report["left_out_of_change"] = cell.left_out()
     text = json.dumps(report, indent=1, default=float)

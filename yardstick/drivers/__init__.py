@@ -1,7 +1,5 @@
-"""One driver a kind of traffic; a traffic file names its driver, and every
-parameter the driver reads is in that file or in the configuration's."""
-
-from yardstick.drivers.extract import ExtractCell
-from yardstick.drivers.train import TrainCell
-
-DRIVERS = {"train": TrainCell, "extract": ExtractCell}
+"""One driver a kind of traffic: ``drivers/<driver>.py``, found by the
+``"driver"`` of a traffic file (``spec.Cell.driver``), exports ``CELL``, the
+class that runs a cell of that traffic; what it needs of the model it asks
+the configuration's model file (``models/``). Every parameter a driver
+reads is in the traffic's file or the configuration's."""

@@ -14,8 +14,7 @@ import math
 import numpy as np
 import torch
 
-from yardstick import inputs, judge, program
-from yardstick.reference import vqvae
+from yardstick import inputs, judge
 from yardstick.reference.precision import fp32
 
 # the rows of the check's reference at a time
@@ -29,19 +28,20 @@ class ExtractCell:
     def __init__(self, spec, seed: int, device, rank: int = 0, mesh_cfg=None):
         self.spec, self.seed, self.device = spec, seed, torch.device(device)
         self.cfg, self.traffic = spec.config, spec.traffic
+        self.model = spec.model()
+        self.ref = self.model.reference
         self.passes = []
 
     def make_inputs(self):
-        t = self.traffic
-        images, _var = inputs.images(t["n_images"], self.seed, self.device, self.cfg["image_size"])
+        images, _stats = self.model.make_data(self.traffic["n_images"], self.cfg, self.seed, self.device)
         self.data = images.cpu().numpy()
         del images
-        self.params0 = inputs.weights(vqvae.param_specs(self.cfg), self.seed, self.device)
+        self.params0 = inputs.weights(self.ref.param_specs(self.cfg), self.seed, self.device)
 
     def setup(self, mark=lambda name: None):
         self.make_inputs()
         mark("inputs")
-        self.program = program.Extraction(self.cfg, self.params0, self.device)
+        self.program = self.model.Extraction(self.cfg, self.params0, self.device)
         mark("program")
         self.program.run(self.data, self.traffic["batch_size"])
         mark("warm pass")
@@ -66,13 +66,31 @@ class ExtractCell:
         with torch.no_grad(), fp32(mode):
             for s in range(0, len(self.data), BLOCK):
                 x = torch.from_numpy(self.data[s:s + BLOCK]).to(self.device)
-                out.append(vqvae.codes(self.params0, x, self.cfg).to(torch.int32).cpu().numpy())
+                out.append(self.ref.codes(self.params0, x, self.cfg).to(torch.int32).cpu().numpy())
         return np.concatenate(out)
 
     def numbers(self, passes=None, gap_limit=math.inf):
         return judge.extraction(passes or self.passes, self.data,
-                                lambda x: vqvae.encode(self.params0, x, self.cfg),
+                                lambda x: self.ref.encode(self.params0, x, self.cfg),
                                 self.params0["codebook"], BLOCK, self.device, gap_limit)
 
     def check(self, limits: dict):
         return self.numbers(gap_limit=limits["code_gap"])
+
+    # -- the readings the limits are set from (``control.py``) ---------------
+
+    def program_numbers(self):
+        """The numbers of one pass after set-up's, once the program is freed."""
+        self.unit()
+        self.release()
+        return self.numbers()[0]
+
+    def control_numbers(self, fault: str = None):
+        """The reference's codes in TF32 in the program's place."""
+        if fault is not None:
+            raise ValueError(f"extraction plants no fault {fault!r}")
+        self.make_inputs()
+        return self.numbers(passes=[self.reference_codes("tf32")])[0]
+
+
+CELL = ExtractCell

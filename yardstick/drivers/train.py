@@ -16,11 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from yardstick import inputs, judge, program
-from yardstick.reference import gated_pixelcnn, vqvae
+from yardstick import inputs, judge
 
-REFERENCES = {"vqvae": vqvae, "gated_pixelcnn": gated_pixelcnn}
-OPTIMIZERS = {"vqvae": "amsgrad", "gated_pixelcnn": "adam"}
 FIRST_STEPS = 3
 # the faults a training cell can have, planted in the reference put in the
 # program's place (yardstick/control.py)
@@ -34,8 +31,7 @@ class TrainCell:
     def __init__(self, spec, seed: int, device, rank: int = 0, mesh_cfg=None):
         self.spec, self.seed, self.device, self.rank = spec, seed, torch.device(device), rank
         self.cfg, self.traffic = spec.config, spec.traffic
-        self.model = self.cfg["model"]
-        self.ref = REFERENCES[self.model]
+        self.model = spec.model()
         self.mesh_cfg = mesh_cfg
         self.n_data = self.traffic.get("n_data", 1)
         self.nonfinite = 0
@@ -43,30 +39,17 @@ class TrainCell:
     # -- inputs --------------------------------------------------------------
 
     def make_inputs(self):
-        t, dev = self.traffic, self.device
-        if self.model == "vqvae":
-            self.data, self.x_train_var = inputs.images(t["n_train"], self.seed, dev,
-                                                        self.cfg["image_size"])
-        else:
-            c = self.cfg
-            self.data = inputs.code_grids(t["n_train"], c["img_dim"], c["input_dim"], c["n_classes"],
-                                          self.seed, dev)
-            self.x_train_var = None
-        self.params0 = inputs.weights(self.ref.param_specs(self.cfg), self.seed, dev)
+        t = self.traffic
+        self.data, self.stats = self.model.make_data(t["n_train"], self.cfg, self.seed, self.device)
+        self.params0 = inputs.weights(self.model.reference.param_specs(self.cfg), self.seed, self.device)
         self.order = inputs.EpochOrder(t["n_train"], t["batch_size"], self.seed)
         self.first_rows = self.order.take(FIRST_STEPS)
 
     def batch(self, rows: np.ndarray):
-        idx = torch.from_numpy(rows).to(self.device)
-        if self.model == "vqvae":
-            return self.data.index_select(0, idx)
-        codes, labels = self.data
-        return codes.index_select(0, idx).long(), labels.index_select(0, idx).long()
+        return self.model.batch(self.data, rows)
 
     def loss_fn(self, params, batch):
-        if self.model == "vqvae":
-            return self.ref.loss(params, batch, self.cfg, self.x_train_var)
-        return self.ref.loss(params, batch, self.cfg)
+        return self.model.loss(params, batch, self.cfg, self.stats)
 
     # -- the program ---------------------------------------------------------
 
@@ -80,13 +63,16 @@ class TrainCell:
         self.nonfinite += int((~np.isfinite(losses)).sum())
         return losses
 
-    def setup(self, mark=lambda name: None):
+    def build(self, mark=lambda name: None):
+        """The inputs and the program, before its first update."""
         self.make_inputs()
         mark("inputs")
-        self.program = program.TRAINING[self.model](
-            self.cfg, self.traffic, self.data, self.x_train_var, self.params0, self.device,
-            self.mesh_cfg)
+        self.program = self.model.Training(self.cfg, self.traffic, self.data, self.stats, self.params0,
+                                           self.device, self.mesh_cfg)
         mark("program")
+
+    def setup(self, mark=lambda name: None):
+        self.build(mark)
         losses = list(self._run(self.first_rows[:1]))
         self.first_grad = {n: g.detach().clone() for n, g in self.program.first_gradient().items()}
         losses += list(self._run(self.first_rows[1:]))
@@ -128,7 +114,7 @@ class TrainCell:
         elif fault is not None:
             raise ValueError(f"unknown fault {fault!r}")
         return judge.reference_steps(self.loss_fn, self.params0, batches, self.cfg["learning_rate"],
-                                     OPTIMIZERS[self.model], mode, grad_rows)
+                                     self.model.optimizer(self.cfg), mode, grad_rows)
 
     def numbers(self, program_side=None):
         """The compared numbers of the program's first updates (or of
@@ -147,8 +133,23 @@ class TrainCell:
         """(numbers, updates of the window whose loss was not finite)."""
         return self.numbers(), self.nonfinite
 
+    # -- the readings the limits are set from (``control.py``) ---------------
+
+    def program_numbers(self):
+        """The numbers of set-up's first updates, once the program is freed."""
+        self.release()
+        return self.numbers()
+
+    def control_numbers(self, fault: str = None):
+        """The reference in the program's place: in TF32, or with ``fault``."""
+        self.make_inputs()
+        return self.numbers(program_side=self.reference("ieee" if fault else "tf32", fault))
+
 
 def _cut(batch, share: float):
     if isinstance(batch, tuple):
         return tuple(_cut(b, share) for b in batch)
     return batch[: max(1, int(batch.shape[0] * share))]
+
+
+CELL = TrainCell

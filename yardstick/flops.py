@@ -134,22 +134,3 @@ def pixelcnn_train_step_flops_per_grid(**kw) -> int:
 def encode_quantize_flops_per_image(**kw) -> int:
     return encoder_flops_per_image(**_pick(kw, _ENC_KEYS)) + quantizer_flops_per_image(
         **_pick(kw, _Q_KEYS))
-
-
-def per_item(model: str, sizes: dict, kind: str) -> int:
-    """Model FLOP of one unit of work: an image of a VQ-VAE train step
-    (``train``) or of encode + search (``encode``), a grid of the prior's
-    train step (``prior``), at the configuration's sizes."""
-    if model == "vqvae":
-        keys = ("in_channels", "n_hiddens", "n_residual_hiddens", "n_residual_layers",
-                "embedding_dim", "n_embeddings")
-        kw = {k: sizes[k] for k in keys}
-        if kind == "train":
-            return train_step_flops_per_image(**kw)
-        if kind == "encode":
-            return encode_quantize_flops_per_image(**kw)
-    if model == "gated_pixelcnn" and kind == "prior":
-        return pixelcnn_train_step_flops_per_grid(
-            img_dim=sizes["img_dim"], dim=sizes["dim"], n_layers=sizes["n_layers"],
-            input_dim=sizes["input_dim"])
-    raise ValueError(f"no FLOP formula for {model!r} / {kind!r}")

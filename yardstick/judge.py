@@ -38,10 +38,11 @@ from yardstick.reference.precision import fp32
 
 
 def reference_steps(loss_fn: Callable, params0: Dict[str, torch.Tensor], batches: Sequence,
-                    lr: float, optimizer: str, mode: str = "ieee",
+                    lr: float, optimizer: Tuple[str, float, float, float], mode: str = "ieee",
                     grad_rows: Optional[Callable] = None):
     """The reference's updates from ``params0`` on ``batches``: (losses,
     first gradient by leaf, parameters after the last update).
+    ``optimizer`` is (kind, b1, b2, eps) of ``reference/optim.py``.
     ``grad_rows`` (a fault planted in the reference put in the program's
     place) maps a batch to the rows whose loss gives the gradient."""
     params = {n: p.detach().clone().requires_grad_(True) for n, p in params0.items()}
@@ -56,7 +57,8 @@ def reference_steps(loss_fn: Callable, params0: Dict[str, torch.Tensor], batches
             if first is None:
                 first = {n: (g.detach().clone() if g is not None else torch.zeros_like(params[n]))
                          for n, g in grads.items()}
-            optim.step(optimizer, {n: p.data for n, p in params.items()}, grads, state, lr)
+            optim.step(optimizer[0], {n: p.data for n, p in params.items()}, grads, state, lr,
+                       *optimizer[1:])
             losses.append(float(loss.detach()))
     return losses, first, {n: p.detach() for n, p in params.items()}
 

@@ -22,7 +22,7 @@ def read(view, info, spec):
         return inside in op.ancestors and bool(op.ancestors) and op.ancestors[-1] in branch
 
     sec = view.seconds(search)
-    if sec == 0.0 or not info.items or not info.peaks:
+    if sec == 0.0 or not info.items or not info.peaks or not info.rows_per_item:
         return None
     k, d = info.sizes["n_embeddings"], info.sizes["embedding_dim"]
     n = info.items * info.rows_per_item

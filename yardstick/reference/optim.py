@@ -3,7 +3,8 @@
 ``amsgrad``: ``torch.optim.Adam(amsgrad=True)`` of torch 1.1.0, the VQ-VAE
 source's optimizer (the raw second moment's running maximum, eps added after
 the square root, bias corrections folded into the step size). ``adam``:
-``torch.optim.Adam`` of torch 2.x, the prior's.
+``torch.optim.Adam`` of torch 2.x, the prior's. ``b1``, ``b2`` and ``eps``
+are the configuration's: its model file's ``optimizer`` gives them.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ def init_state(params: Dict[str, torch.Tensor]) -> dict:
 
 @torch.no_grad()
 def step(kind: str, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor], state: dict,
-         lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> None:
+         lr: float, b1: float, b2: float, eps: float) -> None:
     state["t"] += 1
     t = state["t"]
     bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t

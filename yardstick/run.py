@@ -78,10 +78,10 @@ class SliceInfo:
     items: int                 # images or grids, the global batch's
     chips: int
     sizes: dict                # the configuration
-    flop_per_item: float
+    flop_per_item: float       # the model file's, for the traffic's flop_kind
     arithmetic: str
     peaks: dict
-    rows_per_item: int
+    rows_per_item: Optional[int]   # latent rows an item sends through the search (the model file's)
 
 
 def chip_peaks(kind: str) -> Optional[dict]:
@@ -209,15 +209,13 @@ def _measure(cell_spec, seed: int, seconds: float, trace: bool, device, rank: in
              mesh_cfg=None, dist_device=None):
     import torch
 
-    from yardstick.drivers import DRIVERS
-
     torch.set_num_threads(2)
     marks = [("imports", time.time())]
     on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.empty(1, device=device)
         marks.append(("cuda context", time.time()))
-    cell = DRIVERS[cell_spec.traffic["driver"]](cell_spec, seed, device, rank, mesh_cfg)
+    cell = cell_spec.driver()(cell_spec, seed, device, rank, mesh_cfg)
     cell.setup(lambda name: marks.append((name, time.time())))
     if on_card:
         torch.cuda.synchronize(device)
@@ -296,20 +294,17 @@ def _run_ranks(cell_spec, seed: int, seconds: float, trace: bool, world: int,
 
 
 def _layer_metrics(cell_spec, cell, window, kind: str) -> Dict[str, dict]:
-    from yardstick import flops
-
     view = window.view
     if view is None or view.window_s <= 0:
         raise RuntimeError("the traced slice has no window span")
-    cfg = cell_spec.config
+    cfg, model = cell_spec.config, cell_spec.model()
     info = SliceInfo(steps=window.slice_steps, items=window.slice_items, chips=cell_spec.chips,
-                     sizes=cfg, flop_per_item=flops.per_item(cfg["model"], cfg,
-                                                             cell_spec.traffic["flop_kind"]),
+                     sizes=cfg, flop_per_item=model.flop_per_item(cfg, cell_spec.traffic["flop_kind"]),
                      arithmetic="float32" if cfg["compute_dtype"] == "float32" else "bfloat16",
-                     peaks=chip_peaks(kind) or {}, rows_per_item=(cfg.get("image_size", 32) // 4) ** 2)
+                     peaks=chip_peaks(kind) or {}, rows_per_item=model.rows_per_item(cfg))
     out = {}
     for metric, layer in cell_spec.layers.items():
-        value = specs.reader(metric, layer)(view, info, layer)
+        value = specs.reader(metric, layer, cell_spec.root)(view, info, layer)
         if value is not None:
             out[metric] = {"value": float(value), "unit": layer["unit"]}
     return out

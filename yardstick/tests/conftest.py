@@ -1,22 +1,19 @@
 """Helpers of the yardstick's CPU tests: a cell cut to a size that a test
-run can hold (the widths of the configuration shrunk, the set, the batch and
-the chunks small), and a card-less drive of the command."""
+run can hold (the widths of the configuration shrunk to its model file's
+``SMALL``, the set, the batch and the chunks small), and a card-less drive of
+the command."""
 
 import pytest
 
 from yardstick import spec as specs
 
-SMALL = {
-    "vqvae": dict(n_hiddens=16, n_residual_hiddens=8, embedding_dim=16, n_embeddings=32),
-    "gated_pixelcnn": dict(dim=16, n_layers=3, input_dim=32),
-}
 _LOAD = specs.load_cell
 CELLS = sorted(p.name[:-len(".json")] for p in (specs.ROOT / "cells").glob("*.json"))
 
 
-def small_cell(name):
-    cell = _LOAD(name)
-    cell.config.update(SMALL[cell.config["model"]])
+def small_cell(name, root=specs.ROOT):
+    cell = _LOAD(name, root)
+    cell.config.update(cell.model().SMALL)
     t = cell.traffic
     for key, value in dict(n_train=512, n_images=300, batch_size=32 * t.get("n_data", 1)).items():
         if key in t:
@@ -27,9 +24,10 @@ def small_cell(name):
     return cell
 
 
-def make_cardless(monkeypatch):
-    """Drive ``yardstick.run.main`` on the CPU at a small size: the look for
-    a card is skipped and every rank runs on the CPU (gloo)."""
+def make_cardless(monkeypatch, root=specs.ROOT):
+    """Drive ``yardstick.run.main`` on the CPU at a small size, its cells
+    loaded from ``root``: the look for a card is skipped and every rank runs
+    on the CPU (gloo)."""
     import torch
 
     from yardstick import run
@@ -37,7 +35,7 @@ def make_cardless(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *_: "cpu")
-    monkeypatch.setattr(run.specs, "load_cell", small_cell)
+    monkeypatch.setattr(run.specs, "load_cell", lambda name: small_cell(name, root))
     measure, ranks = run._measure, run._run_ranks
     monkeypatch.setattr(run, "_measure", lambda c, s, sec, tr, _dev, *a: measure(c, s, sec, tr, torch.device("cpu"), *a))
     monkeypatch.setattr(run, "_run_ranks", lambda *a: ranks(*a, device="cpu"))

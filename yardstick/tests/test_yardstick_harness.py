@@ -10,7 +10,7 @@ import sys
 
 import pytest
 
-from yardstick import flops, run
+from yardstick import run
 from yardstick import spec as specs
 from yardstick.tests.conftest import CELLS
 
@@ -94,15 +94,16 @@ def test_yardstick_frozen_flops_equal_the_programs(config):
     from vqvae_tpu_torch.utils import flops as program_flops
 
     cfg = json.loads((specs.ROOT / "configs" / f"{config}.json").read_text())
+    per_item = specs.module("models", cfg["model"]).flop_per_item
     if cfg["model"] == "vqvae":
         kw = {k: cfg[k] for k in ("in_channels", "n_hiddens", "n_residual_hiddens",
                                   "n_residual_layers", "embedding_dim", "n_embeddings")}
-        assert flops.per_item("vqvae", cfg, "train") == program_flops.train_step_flops_per_image(**kw)
-        assert flops.per_item("vqvae", cfg, "encode") == program_flops.encode_quantize_flops_per_image(**kw)
-        assert flops.per_item("vqvae", cfg, "train") == 265_289_728
+        assert per_item(cfg, "train") == program_flops.train_step_flops_per_image(**kw)
+        assert per_item(cfg, "encode") == program_flops.encode_quantize_flops_per_image(**kw)
+        assert per_item(cfg, "train") == 265_289_728
     else:
         kw = {k: cfg[k] for k in ("img_dim", "dim", "n_layers", "input_dim")}
-        assert flops.per_item("gated_pixelcnn", cfg, "prior") == \
+        assert per_item(cfg, "prior") == \
             program_flops.pixelcnn_train_step_flops_per_grid(**kw) == 684_195_840
 
 
@@ -199,11 +200,9 @@ def test_yardstick_trace_view_reads_a_chrome_trace():
     assert view.ops[0].ancestors == (WINDOW_SPAN, "yardstick.steps_by_index", "aten::convolution")
     assert math.isclose(sum(s for _, s in view.gaps), 80e-6)
     assert dict(view.gaps)["yardstick.steps_by_index / aten::copy_"] == pytest.approx(45e-6)
-    reader = specs.reader("conv_ms_per_step.train", specs.load_cell("vqvae_cifar10.train_b256").layers[
-        "conv_ms_per_step.train"])
+    layer = specs.load_cell("gated_pixelcnn_cifar10.train_b1024").layers["conv_ms_per_step.prior"]
     info = run.SliceInfo(2, 512, 1, {}, 1.0, "float32", {}, 64)
-    assert reader(view, info, specs.load_cell("vqvae_cifar10.train_b256").layers["conv_ms_per_step.train"]) \
-        == pytest.approx(1e-5 / 2 * 1e3)
+    assert specs.reader("conv_ms_per_step.prior", layer)(view, info, layer) == pytest.approx(1e-5 / 2 * 1e3)
 
 
 class _CountingCell:
